@@ -16,10 +16,17 @@ Phases (any failure exits non-zero):
              over this pass (> 0)
   4. kernels every kernel against its plain PyTorch version on the card, at
              the shapes the bench pass gave it (inputs recorded during the
-             pass), plus the issue's fixed pair_min case (C=2048, P=256,
-             Q=512, masks, 1 km offset) and a full CC of a golden chunk;
+             pass), plus fixed pair_min cases (C=2048, P=256, Q=512 with
+             masks 1 km from the origin; C=7, P=100, Q=300 with duplicated
+             points) and a full CC of a golden chunk, all bit for bit;
              times of kernel, plain version and library yardstick, and the
              bound from the H100 data sheet
+Each kernel row has two times. ``device_ms`` is the kernel's own device time
+per launch, from torch.profiler (the summed self device time of the kernel's
+launches over the number of calls); ``ms`` repeats it. ``call_ms`` is CUDA
+events around back-to-back calls of the Python wrapper, over the number of
+calls: where the wrapper's host work outlasts the kernel, the card idles
+between launches and ``call_ms - device_ms`` is that host cost.
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -36,9 +43,12 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
-# H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit
+# H100 SXM data-sheet peaks (dense, no sparsity), at the 700 W limit; the
+# fp32 rate counts an FMA as two operations, so the kernels' unfused
+# arithmetic tops out at half of it
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -78,19 +88,27 @@ class Recorder:
     arguments (or the result, ``of="result"``) of its largest call as
     measured by ``size_fn``; the function itself runs untouched. Wrapping
     the kernels' callers rather than the kernel wrappers leaves each
-    wrapper's launch count on the wrapper."""
+    wrapper's launch count on the wrapper. ``key_fn`` (optional) counts
+    calls by key. ``seconds`` is the host time of this bookkeeping, which a
+    timed run includes (with any wait for the device that ``size_fn``
+    forces)."""
 
-    def __init__(self, module, name, size_fn, of="args"):
+    def __init__(self, module, name, size_fn, of="args", key_fn=None):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.value, self.kwargs, self.size = None, None, -1
+        self.keys, self.seconds = Counter(), 0.0
 
         def wrapper(*args, **kwargs):
             out = self.orig(*args, **kwargs)
+            t0 = time.perf_counter()
+            if key_fn is not None:
+                self.keys[key_fn(*args)] += 1
             s = size_fn(out) if of == "result" else size_fn(*args)
             if s > self.size:
                 self.size, self.kwargs = s, dict(kwargs)
                 self.value = _copy(out) if of == "result" else tuple(_copy(a) for a in args)
+            self.seconds += time.perf_counter() - t0
             return out
 
         setattr(module, name, wrapper)
@@ -118,20 +136,111 @@ def cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, symbol, reps):
+    """Device time per call of ``fn``: torch.profiler's self device time of
+    the kernels whose name contains ``symbol``, summed over ``reps`` calls,
+    over ``reps``. Fails unless a session sees every call launch one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():  # rehearsal: no device time
+        return float("nan")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiling session now and then records no kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and symbol in e.key]
+        launches = sum(e.count for e in evs)
+        if launches >= reps:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+        log(f"# profiler saw {launches} launches of {symbol} in {reps} calls; again")
+    fail(f"profiler saw {launches} launches of {symbol} in {reps} calls")
+
+
+def kernel_times(fn, symbol, reps):
+    """(device_ms, call_ms) of one wrapper call; see the module docstring."""
+    return device_ms(fn, symbol, reps), cuda_time_ms(fn, reps)
+
+
+def smi(query):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
 def bound_ms(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def pair_min_bound(a, b):
-    """10 operations per (p, q) pair (3 sub, 3 mul, 2 add, 2 compares); bytes:
-    12 B of xyz and a 1 B mask in, 8 B (d2, index) out, per point."""
+def pair_min_bound(a, b, am, bm):
+    """The work these inputs need: every (p, q) pair with a valid p or a
+    valid q has its distance computed once (8 operations: 3 sub, 3 mul,
+    2 add) and compared once for each direction that reads it (p's row when
+    q is valid, q's row when p is valid). Bytes: 12 B of xyz and a 1 B mask
+    in, 8 B (d2, index) out, per point."""
     C, P, Q = a.shape[0], a.shape[1], b.shape[1]
-    return bound_ms(C * P * Q * 10, C * (P + Q) * (12 + 1 + 8))
+    na, nb = am.sum(1).long(), bm.sum(1).long()
+    union = int((P * Q - (P - na) * (Q - nb)).sum())
+    directed = int((P * nb + na * Q).sum())
+    return bound_ms(8 * union + directed, C * (P + Q) * (12 + 1 + 8))
+
+
+def pair_min_check(pm_mod, label, args):
+    """The kernel against its plain version, bit for bit; returns the
+    largest absolute d2 difference over finite entries (0 when equal)."""
+    import torch
+
+    k_out, p_out = pm_mod.pair_min(*args), pm_mod.pair_min_plain(*args)
+    bad_idx = sum(int((ko != po).sum()) for ko, po in ((k_out[1], p_out[1]),
+                                                        (k_out[3], p_out[3])))
+    bad_d2 = sum(int((ko != po).sum()) for ko, po in ((k_out[0], p_out[0]),
+                                                       (k_out[2], p_out[2])))
+    err = 0.0
+    for ko, po in ((k_out[0], p_out[0]), (k_out[2], p_out[2])):
+        fin = torch.isfinite(po) & torch.isfinite(ko)
+        if fin.any():
+            err = max(err, float((ko[fin] - po[fin]).abs().max()))
+    log(f"# pair_min ({label}, {tuple(args[0].shape)} x {tuple(args[1].shape)}, valid a "
+        f"{float(args[2].float().mean()):.3f}, valid b {float(args[3].float().mean()):.3f}): "
+        f"index mismatches {bad_idx}, d2 mismatches {bad_d2}, max abs d2 err {err:.3g}")
+    if bad_idx or bad_d2:
+        fail(f"pair_min ({label}) disagrees with its plain version")
+    return err
 
 
 def run_pairs(bounds):
     return int((bounds[3:].long() - bounds[:3].long()).clamp(min=0).sum())
+
+
+def cc_union_pairs(bounds, plan):
+    """(slot, position) pairs that cc_round's union ranges hold: each
+    block's slots times its three ranges, and each warp's 32 lanes times
+    their union of runs (what the kernel's warps scan, idle lanes too)."""
+    import torch
+
+    plan = plan.long()
+    plan = plan[torch.argsort(plan[:, 0])]  # slot order
+    n0, n1 = plan[:, 0], plan[:, 1]
+    block = ((n1 - n0) * (plan[:, 5:8] - plan[:, 2:5]).sum(1)).sum()
+    m = bounds.shape[1]
+    blk = torch.repeat_interleave(torch.arange(plan.shape[0], device=plan.device), n1 - n0)
+    wid = blk * 4 + (torch.arange(m, device=plan.device) - n0[blk]) // 32  # 4 warps a block
+    nw = plan.shape[0] * 4
+    st, en = bounds[:3].long(), bounds[3:].long()
+    ne = en > st
+    big = torch.iinfo(torch.int64).max
+    lo = torch.full((3, nw), big, device=plan.device).scatter_reduce_(
+        1, wid.expand(3, -1), torch.where(ne, st, torch.full_like(st, big)), "amin")
+    hi = torch.zeros((3, nw), dtype=torch.int64, device=plan.device).scatter_reduce_(
+        1, wid.expand(3, -1), torch.where(ne, en, torch.zeros_like(en)), "amax")
+    return int(block), int(((hi - lo).clamp(min=0) * 32).sum())
 
 
 def main():
@@ -151,12 +260,7 @@ def main():
         def sync():
             pass
     else:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
-        if smi.returncode != 0:
-            fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-        gpu_line, dev = smi.stdout.strip().splitlines()[0], torch.device("cuda")
+        gpu_line, dev = smi("name,power.limit"), torch.device("cuda")
         golden_size, bench_size, fixed_c = (12, 20_000), (100, 90_000), 2048
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
@@ -208,7 +312,8 @@ def main():
     stages = pipeline.build_stages(pipeline.BENCH, device=dev)
     recs = {
         "pair_min": Recorder(tb_mod, "_pair_min", lambda a, *r: a.shape[0] * a.shape[1]
-                             * r[0].shape[1]),
+                             * r[0].shape[1],
+                             key_fn=lambda a, b, *r: (a.shape[0], a.shape[1], b.shape[1])),
         "cc_round": Recorder(sg, "cc_prep", lambda st: run_pairs(st["bounds"]), of="result"),
         "radius_scan": Recorder(sg, "scan_prep", lambda st: run_pairs(st["bounds"]),
                                 of="result"),
@@ -230,6 +335,8 @@ def main():
         f"total {wall:.3f} s -> {n_frames / wall * 3600:.1f} frames/hr; peak {peak_gb:.2f} GB")
     log(f"# bench: box mIoU all {all_m:.4f} moving {mov_m:.4f} static {stat_m:.4f}; "
         f"telemetry {json.dumps(telemetry.snapshot())}; launches {json.dumps(launches)}")
+    log(f"# bench: the recorders' own host time in the pass: "
+        f"{sum(r.seconds for r in recs.values()):.4f} s")
     if not rehearse and not all_m >= 0.50:
         fail(f"bench scene all-box mIoU {all_m:.4f} < 0.50")
     for name, n in launches.items():
@@ -238,8 +345,17 @@ def main():
 
     # ---- 4. kernels against their plain versions ----------------------------
     rows = []
+    hist = recs["pair_min"].keys
+    by_pairs = sorted(hist, key=lambda k: -hist[k] * k[0] * k[1] * k[2])
+    log(f"# pair_min shapes on the main path ({len(hist)} distinct (C, P, Q), "
+        f"{sum(hist.values())} calls): top by calls "
+        f"{[[list(k), n] for k, n in hist.most_common(8)]}; top by pairs "
+        f"{[[list(k), hist[k], hist[k] * k[0] * k[1] * k[2]] for k in by_pairs[:8]]}")
+    log(f"# clocks before the kernel phase (sm, max sm, power): "
+        f"{'cpu rehearsal' if rehearse else smi('clocks.sm,clocks.max.sm,power.draw')}")
 
-    # pair_min: the issue's fixed case, then the bench pass's largest call
+    # pair_min: fixed cases (large C, 1 km offset; small C, ragged P and Q,
+    # duplicated points), then the bench pass's largest call
     g = torch.Generator(device="cpu").manual_seed(0)
     C, P, Q = fixed_c, 256, 512
     a = (torch.rand((C, P, 3), generator=g) * 8 + 1000.0).to(dev)
@@ -248,28 +364,21 @@ def main():
     bm = (torch.rand((C, Q), generator=g) > 0.2).to(dev)
     am[1] = False
     bm[C - 1] = False
+    sa = torch.rand((7, 100, 3), generator=g) * 4
+    sb = torch.cat([sa[:, :60], torch.rand((7, 240, 3), generator=g) * 4], 1)
+    small = (sa.to(dev), sb.to(dev), (torch.rand((7, 100), generator=g) > 0.3).to(dev),
+             (torch.rand((7, 300), generator=g) > 0.3).to(dev))
+    small[2][3] = False
+    small[3][5] = False
     for label, args in ((f"fixed C={C} P={P} Q={Q} +1km", (a, b, am, bm)),
+                        ("small C=7 P=100 Q=300, duplicates", small),
                         ("bench", recs["pair_min"].value)):
-        k_out = pm_mod.pair_min(*args)
-        p_out = pm_mod.pair_min_plain(*args)
-        bad_idx = sum(int((ko != po).sum()) for ko, po in ((k_out[1], p_out[1]),
-                                                            (k_out[3], p_out[3])))
-        err = 0.0
-        for ko, po in ((k_out[0], p_out[0]), (k_out[2], p_out[2])):
-            fin = torch.isfinite(po)
-            if not torch.equal(fin, torch.isfinite(ko)):
-                fail(f"pair_min ({label}): +inf pattern differs from the plain version")
-            rel = ((ko[fin] - po[fin]).abs() / po[fin].abs().clamp(min=1e-30))
-            err = max(err, float(rel.max()) if rel.numel() else 0.0)
-        log(f"# pair_min ({label}, {tuple(args[0].shape)} x {tuple(args[1].shape)}): "
-            f"index mismatches {bad_idx}, max rel d2 err {err:.3g}")
-        if bad_idx or err > 1e-6:
-            fail(f"pair_min ({label}) disagrees with its plain version")
-        log(f"# pair_min ({label}): {cuda_time_ms(lambda: pm_mod.pair_min(*args), 20):.4f} ms, "
-            f"bound {pair_min_bound(args[0], args[1])[0]:.4f} ms")
+        err = pair_min_check(pm_mod, label, args)
+        d_ms, c_ms = kernel_times(lambda: pm_mod.pair_min(*args), "pair_min_kernel", 50)
+        log(f"# pair_min ({label}): device {d_ms:.5f} ms, call {c_ms:.5f} ms, bound "
+            f"{pair_min_bound(*args)[0]:.5f} ms")
     a, b, am, bm = recs["pair_min"].value
     C, P, Q = a.shape[0], a.shape[1], b.shape[1]
-    k_ms = cuda_time_ms(lambda: pm_mod.pair_min(a, b, am, bm), 50)
     p_ms = cuda_time_ms(lambda: pm_mod.pair_min_plain(a, b, am, bm), 5)
 
     def cdist_min():
@@ -278,29 +387,26 @@ def main():
         torch.where(am[:, :, None], d2, float("inf")).min(1)
 
     lib_ms = cuda_time_ms(cdist_min, 5)
-    bms, by = pair_min_bound(a, b)
-    k_out, p_out = pm_mod.pair_min(a, b, am, bm), pm_mod.pair_min_plain(a, b, am, bm)
-    abs_err = 0.0
-    for ko, po in ((k_out[0], p_out[0]), (k_out[2], p_out[2])):
-        fin = torch.isfinite(po)
-        if fin.any():
-            abs_err = max(abs_err, float((ko[fin] - po[fin]).abs().max()))
+    bms, by = pair_min_bound(a, b, am, bm)
     rows.append(dict(
         name="pair_min", route="cuda", source="pcseqlearning_tpu_torch/csrc/pair_min.cu",
         replaces="pcseqlearning_tpu/ops/pallas_tpu.py:55", launches=launches["pair_min"],
-        max_abs_err=abs_err,
-        ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-        shape=[C, P, Q]))
+        max_abs_err=err, ms=d_ms, device_ms=d_ms, call_ms=c_ms, plain_ms=p_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms, shape=[C, P, Q]))
 
     # cc_round: the bench pass's largest round; then a full CC of a golden chunk
     st = recs["cc_round"].value  # the first round of the chunk with most run pairs
-    xyz, bnds, r2 = st["sorted_xyz"], st["bounds"], st["r2"]
+    xyz, bnds, r2, plan = st["sorted_xyz"], st["bounds"], st["r2"], st["plan"]
     labels = torch.arange(xyz.shape[0], dtype=torch.int32, device=dev)
-    k_lab = sg.cc_round(xyz, labels, bnds, r2)
-    p_lab = sg.cc_round_plain(xyz, labels, bnds, r2)
+    args = (xyz, labels, bnds, r2, plan)
+    k_lab = sg.cc_round(*args)
+    p_lab = sg.cc_round_plain(*args[:4])
     bad = int((k_lab != p_lab).sum())
+    blk_pairs, warp_pairs = cc_union_pairs(bnds, plan)
     log(f"# cc_round (bench, {xyz.shape[0]} slots, {run_pairs(bnds)} run pairs): "
-        f"label mismatches {bad}")
+        f"label mismatches {bad}; {plan.shape[0]} blocks, whose ranges hold {blk_pairs} "
+        f"pairs ({blk_pairs / run_pairs(bnds):.4f}x the runs), warp ranges {warp_pairs} "
+        f"lane pairs ({warp_pairs / run_pairs(bnds):.4f}x)")
     if bad:
         fail("cc_round disagrees with its plain version")
     (pts, valid, radius), grid = golden_chunk
@@ -314,12 +420,12 @@ def main():
     m = labels.shape[0]
     pairs = run_pairs(bnds)
     bms, by = bound_ms(pairs * 10, m * (12 + 4 + 24 + 4))
+    d_ms, c_ms = kernel_times(lambda: sg.cc_round(*args), "cc_round_kernel", 20)
     rows.append(dict(
         name="cc_round", route="cuda", source="pcseqlearning_tpu_torch/csrc/cc_round.cu",
         replaces="pcseqlearning_tpu/ops/pallas_scan.py:600", launches=launches["cc_round"],
-        max_abs_err=float((k_lab - p_lab).abs().max()),
-        ms=cuda_time_ms(lambda: sg.cc_round(xyz, labels, bnds, r2), 20),
-        plain_ms=cuda_time_ms(lambda: sg.cc_round_plain(xyz, labels, bnds, r2), 2),
+        max_abs_err=float((k_lab - p_lab).abs().max()), ms=d_ms, device_ms=d_ms, call_ms=c_ms,
+        plain_ms=cuda_time_ms(lambda: sg.cc_round_plain(*args[:4]), 2),
         bound_ms=bms, bound_by=by, library_ms=None, shape=[m, pairs]))
 
     # radius_scan: the bench pass's largest tracked-window claim
@@ -337,17 +443,21 @@ def main():
     pairs = run_pairs(bnds)
     n, m = table.shape[0], q.shape[0]
     bms, by = bound_ms(pairs * 10, n * 12 + m * (12 + 24) + m * k * 8)
+    d_ms, c_ms = kernel_times(lambda: sg.radius_scan(table, q, bnds, r2, k),
+                              "radius_scan_kernel", 20)
     rows.append(dict(
         name="radius_scan", route="cuda", source="pcseqlearning_tpu_torch/csrc/radius_scan.cu",
         replaces="pcseqlearning_tpu/ops/pallas_scan.py:275", launches=launches["radius_scan"],
-        max_abs_err=err, ms=cuda_time_ms(lambda: sg.radius_scan(table, q, bnds, r2, k), 20),
+        max_abs_err=err, ms=d_ms, device_ms=d_ms, call_ms=c_ms,
         plain_ms=cuda_time_ms(lambda: sg.radius_scan_plain(table, q, bnds, r2, k), 2),
         bound_ms=bms, bound_by=by, library_ms=None, shape=[m, n, pairs]))
+    log(f"# clocks after the kernel phase (sm, max sm, power): "
+        f"{'cpu rehearsal' if rehearse else smi('clocks.sm,clocks.max.sm,power.draw')}")
 
     for r in rows:
-        log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']}) "
-            f"launches {r['launches']} shape {r['shape']}")
+        log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "
+            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']}, "
+            f"library {r['library_ms']}) launches {r['launches']} shape {r['shape']}")
     log(f"# ledger: {json.dumps(dict(gpu=gpu_line, golden=stats, bench_times=times, bench_wall=wall, bench_frames_per_hour=n_frames / wall * 3600, peak_gb=peak_gb, box_miou=[all_m, mov_m, stat_m]))}")
     if rehearse:
         log("# cpu rehearsal finished: no device result")

@@ -7,97 +7,161 @@
 //   bwd_d2[q] = min over p with a_mask of d2, bwd_idx = first argmin
 // An empty row gives +inf and index 0.
 //
-// What bounds it on an H100: operations. Each pair costs 8 float32 flops
-// (3 sub, 3 mul, 2 add) plus a compare; bytes are only the C*(P+Q) points
-// and the outputs. The design keeps everything on chip: one block per
-// component stages a's and b's points (xyz + mask as one float4 each, about
-// 12 KB at P=256, Q=512) in shared memory, then a thread per p scans all q
-// (forward) and a thread per q scans all p (backward). In each inner step
-// every thread of a warp reads the same shared-memory word, a broadcast with
-// no bank conflicts, and the mask test is uniform across the warp.
+// What bounds it on an H100: operations. A pair costs 8 float32 operations
+// (3 sub, 3 mul, 2 add; no FMA, see below) plus a compare and two selects
+// for the running min and argmin; bytes are only the C*(P+Q) points and the
+// outputs. The walk calls it with C = 144 components, P = 256 and Q = 256 or
+// 512, and most of a call's components have few or no valid points while a
+// few are full, so the design is about filling 132 SMs and about the
+// longest block:
+//   * Rows are independent. Component c has P forward rows (a's points,
+//     scanning b) and Q backward rows (b's points, scanning a). The grid is
+//     C * (fwd_blocks + bwd_blocks) blocks of THREADS threads, fwd_blocks =
+//     ceil(P / ROWS) and bwd_blocks = ceil(Q / ROWS); block s of a component
+//     owns ROWS forward rows for s < fwd_blocks, else ROWS backward rows.
+//     Thread t = h * ROWS + g takes the slice's row g and scans segment h of
+//     SEGMENTS equal parts of the staged points; segment 0 then takes the
+//     other segments' minima through shared memory (a later segment wins
+//     only when strictly smaller, which keeps the first argmin). Two
+//     segments halve the longest scan, the one over a full component, which
+//     sets the time of a walk-sized call (C = 144: 1,728 blocks on 132 SMs).
+//     No reduction crosses blocks.
+//   * Compacted operand: a block stages only the side its rows scan, and
+//     only the points whose mask is set, in their original order (a stable
+//     in-block prefix sum over warp ballots, done in shared memory after one
+//     round of independent loads). Each staged point is one float4,
+//     x, y, z and its original index as integer bits. Masked points then cost
+//     no iterations, every thread of a warp reads the same word (a broadcast),
+//     and the scan order is the index order, so a strict < keeps the first
+//     argmin.
 //
 // The distance uses round-to-nearest intrinsics so nvcc cannot contract it
 // into FMAs: the kernel then rounds exactly like the plain PyTorch version
-// (dx*dx + dy*dy + dz*dz, each op rounded), and argmins agree bit for bit.
+// (dx*dx + dy*dy + dz*dz, each op rounded), and outputs agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-__device__ __forceinline__ float d2_direct(float4 a, float4 b) {
-  const float dx = __fsub_rn(a.x, b.x);
-  const float dy = __fsub_rn(a.y, b.y);
-  const float dz = __fsub_rn(a.z, b.z);
+#define THREADS 128                // threads per block
+#define SEGMENTS 2                 // scan segments per row
+#define ROWS (THREADS / SEGMENTS)  // output rows per block
+
+__device__ __forceinline__ float d2_direct(float ax, float ay, float az, float4 b) {
+  const float dx = __fsub_rn(ax, b.x);
+  const float dy = __fsub_rn(ay, b.y);
+  const float dz = __fsub_rn(az, b.z);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-__global__ void pair_min_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                const uint8_t* __restrict__ a_mask,
-                                const uint8_t* __restrict__ b_mask, int P, int Q,
-                                float* __restrict__ fwd_d2, int* __restrict__ fwd_idx,
-                                float* __restrict__ bwd_d2, int* __restrict__ bwd_idx) {
-  extern __shared__ float4 smem[];
-  float4* sa = smem;      // [P]: x, y, z, mask
-  float4* sb = smem + P;  // [Q]
-  const long long c = blockIdx.x;
-  const float* ac = a + c * P * 3;
-  const float* bc = b + c * Q * 3;
-  for (int p = threadIdx.x; p < P; p += blockDim.x)
-    sa[p] = make_float4(ac[3 * p], ac[3 * p + 1], ac[3 * p + 2],
-                        a_mask[c * P + p] ? 1.f : 0.f);
-  for (int q = threadIdx.x; q < Q; q += blockDim.x)
-    sb[q] = make_float4(bc[3 * q], bc[3 * q + 1], bc[3 * q + 2],
-                        b_mask[c * Q + q] ? 1.f : 0.f);
+// Stage the n points of pts[N] whose mask is set into sm[0, n), in order, as
+// (x, y, z, index bits); every thread of the block calls this and gets n.
+// First every point goes to sm[k] with its index, or -1 where masked
+// (independent loads, all in flight together); then a stable in-place
+// compaction over shared memory, THREADS points a round: a kept point moves
+// to its rank among the kept ones, which is never to the right of it nor
+// into a later round's points.
+__device__ int stage_compacted(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                               int N, float4* sm, int* warp_counts) {
+  for (int k = threadIdx.x; k < N; k += THREADS)
+    sm[k] = make_float4(pts[3 * k], pts[3 * k + 1], pts[3 * k + 2],
+                        __int_as_float(mask[k] ? k : -1));
   __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < N; base += THREADS) {
+    const int k = base + threadIdx.x;
+    const float4 v = k < N ? sm[k] : make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
+    const bool keep = __float_as_int(v.w) >= 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();  // this round's points are read before any is written
+    int before = total, round = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      if (w < warp) before += warp_counts[w];
+      round += warp_counts[w];
+    }
+    if (keep) sm[before + __popc(ballot & ((1u << lane) - 1u))] = v;
+    total += round;
+    __syncthreads();  // warp_counts is rewritten next round; sm is complete after the last
+  }
+  return total;
+}
 
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const float4 x = sa[p];
-    float best = INFINITY;
-    int arg = 0;
-    for (int q = 0; q < Q; ++q) {
-      const float4 y = sb[q];
-      if (y.w != 0.f) {
-        const float d = d2_direct(x, y);
-        if (d < best) {  // strict: ties keep the first index
-          best = d;
-          arg = q;
-        }
-      }
+__global__ void __launch_bounds__(THREADS)
+    pair_min_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const uint8_t* __restrict__ a_mask, const uint8_t* __restrict__ b_mask,
+                    int P, int Q, int fwd_blocks, int bwd_blocks, float* __restrict__ fwd_d2,
+                    int* __restrict__ fwd_idx, float* __restrict__ bwd_d2,
+                    int* __restrict__ bwd_idx) {
+  extern __shared__ float4 sm[];  // [n]: the compacted scanned side
+  __shared__ int warp_counts[THREADS / 32];
+  __shared__ float part_d[(SEGMENTS - 1) * ROWS];
+  __shared__ int part_i[(SEGMENTS - 1) * ROWS];
+  const int per_c = fwd_blocks + bwd_blocks;
+  const long long c = blockIdx.x / per_c;
+  const int s = blockIdx.x % per_c;
+  const bool fwd = s < fwd_blocks;
+  const float* rows = fwd ? a + c * P * 3 : b + c * Q * 3;
+  const int nrows = fwd ? P : Q;
+  const float* scan = fwd ? b + c * Q * 3 : a + c * P * 3;
+  const uint8_t* scan_mask = fwd ? b_mask + c * Q : a_mask + c * P;
+  float* out_d = fwd ? fwd_d2 + c * P : bwd_d2 + c * Q;
+  int* out_i = fwd ? fwd_idx + c * P : bwd_idx + c * Q;
+  const int g = threadIdx.x % ROWS, h = threadIdx.x / ROWS;  // row lane, scan segment (warp-uniform)
+  const int row = (fwd ? s : s - fwd_blocks) * ROWS + g;
+  const bool ok = row < nrows;
+  const float x = ok ? rows[3 * row] : 0.f;
+  const float y = ok ? rows[3 * row + 1] : 0.f;
+  const float z = ok ? rows[3 * row + 2] : 0.f;
+  float best = INFINITY;
+  int arg = 0;
+  const int n = stage_compacted(scan, scan_mask, fwd ? Q : P, sm, warp_counts);
+
+  // segment h scans the staged points [n*h/SEGMENTS, n*(h+1)/SEGMENTS)
+#pragma unroll 4
+  for (int j = n * h / SEGMENTS; j < n * (h + 1) / SEGMENTS; ++j) {
+    const float4 p = sm[j];
+    const float d = d2_direct(x, y, z, p);
+    if (d < best) {  // strict: ties keep the first index
+      best = d;
+      arg = __float_as_int(p.w);
     }
-    fwd_d2[c * P + p] = best;
-    fwd_idx[c * P + p] = arg;
   }
-  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
-    const float4 y = sb[q];
-    float best = INFINITY;
-    int arg = 0;
-    for (int p = 0; p < P; ++p) {
-      const float4 x = sa[p];
-      if (x.w != 0.f) {
-        const float d = d2_direct(x, y);
-        if (d < best) {
-          best = d;
-          arg = p;
-        }
-      }
+  // segment 0 takes a later segment's minimum only when it is smaller
+  if (h > 0) {
+    part_d[(h - 1) * ROWS + g] = best;
+    part_i[(h - 1) * ROWS + g] = arg;
+  }
+  __syncthreads();
+  if (h > 0 || !ok) return;
+#pragma unroll
+  for (int hh = 0; hh < SEGMENTS - 1; ++hh) {
+    const float d = part_d[hh * ROWS + g];
+    if (d < best) {
+      best = d;
+      arg = part_i[hh * ROWS + g];
     }
-    bwd_d2[c * Q + q] = best;
-    bwd_idx[c * Q + q] = arg;
   }
+  out_d[row] = best;
+  out_i[row] = arg;
 }
 
 extern "C" int pair_min_launch(const void* a, const void* b, const void* a_mask,
                                const void* b_mask, int C, int P, int Q, void* fwd_d2,
                                void* fwd_idx, void* bwd_d2, void* bwd_idx, void* stream) {
-  if (C == 0) return 0;
-  const size_t smem = (size_t)(P + Q) * sizeof(float4);
+  const int fwd_blocks = (P + ROWS - 1) / ROWS, bwd_blocks = (Q + ROWS - 1) / ROWS;
+  if (C == 0 || fwd_blocks + bwd_blocks == 0) return 0;
+  const size_t smem = (size_t)(P > Q ? P : Q) * sizeof(float4);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pair_min_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(pair_min_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pair_min_kernel<<<C, 256, smem, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (const uint8_t*)a_mask, (const uint8_t*)b_mask,
-      P, Q, (float*)fwd_d2, (int*)fwd_idx, (float*)bwd_d2, (int*)bwd_idx);
+  pair_min_kernel<<<(unsigned)C * (fwd_blocks + bwd_blocks), THREADS, smem,
+                    (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (const uint8_t*)a_mask, (const uint8_t*)b_mask, P, Q,
+      fwd_blocks, bwd_blocks, (float*)fwd_d2, (int*)fwd_idx, (float*)bwd_d2, (int*)bwd_idx);
   return (int)cudaGetLastError();
 }

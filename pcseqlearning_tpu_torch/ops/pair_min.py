@@ -21,7 +21,9 @@ import torch
 
 from . import cuda_build
 
-_MAX_SMEM = 227 * 1024
+# the dynamic shared-memory tile (one float4 per staged point); the kernel's
+# static shared memory takes the rest of the 227 KB a block may use
+_MAX_SMEM = 226 * 1024
 
 
 def pair_min_plain(a, b, a_mask, b_mask):
@@ -75,8 +77,8 @@ def pair_min(a, b, a_mask, b_mask):
     cuda_build.require(b, "b", torch.float32, (C, Q, 3), dev)
     cuda_build.require(a_mask, "a_mask", torch.bool, (C, P), dev)
     cuda_build.require(b_mask, "b_mask", torch.bool, (C, Q), dev)
-    if (P + Q) * 16 > _MAX_SMEM:
-        raise ValueError(f"pair_min: P + Q = {P + Q} exceeds the kernel's "
+    if max(P, Q) * 16 > _MAX_SMEM:
+        raise ValueError(f"pair_min: max(P, Q) = {max(P, Q)} exceeds the kernel's "
                          f"shared-memory tile ({_MAX_SMEM // 16} points)")
     fd = torch.empty((C, P), dtype=torch.float32, device=dev)
     fi = torch.empty((C, P), dtype=torch.int32, device=dev)

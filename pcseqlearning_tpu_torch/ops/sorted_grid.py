@@ -11,7 +11,9 @@ hand-written CUDA kernels then walk the runs:
   * ``cc_round`` (csrc/cc_round.cu, replaces ``_cc_kernel``): one
     label-propagation round, the min label over in-radius run members.
     ``connected_components_radius`` repeats it with five pointer-jump hops
-    per round, at most 24 rounds, as ``_cc_rounds`` did.
+    per round, at most 24 rounds, as ``_cc_rounds`` did. The kernel works
+    in blocks of consecutive slots of one column whose runs' union ranges
+    ``cc_plan`` computes once per chunk (in ``cc_prep``).
   * ``radius_scan`` (csrc/radius_scan.cu, replaces ``_scan_kernel``): the
     k nearest in-radius run members, ascending, ties to the lower sorted
     position, padded with +inf / -1.
@@ -36,6 +38,7 @@ from . import cuda_build
 
 _BIGI = 2 ** 31 - 1
 _PAIR_BUDGET = 1 << 24  # (query, run member) pairs per plain-version chunk
+CC_BLOCK = 128  # slots per block of the cc_round kernel (CC_THREADS in csrc/cc_round.cu)
 
 
 def radius_r2(radius):
@@ -145,15 +148,16 @@ def cc_round_plain(xyz, labels, bounds, r2):
 def _cc_launcher():
     fn = cuda_build.load("cc_round.cu").cc_round_launch
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_float, p, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def cc_round(xyz, labels, bounds, r2):
+def cc_round(xyz, labels, bounds, r2, plan):
     """One round over the sorted slots: xyz [m, 3] f32, labels [m] i32,
-    bounds [6, m] i32, r2 float -> new labels [m] i32."""
+    bounds [6, m] i32, r2 float, plan [nb, 8] i32 (``cc_plan``: the kernel's
+    blocks; the plain version needs none) -> new labels [m] i32."""
     if xyz.device.type == "cpu":
         return cc_round_plain(xyz, labels, bounds, r2)
     if xyz.device.type != "cuda":
@@ -163,13 +167,14 @@ def cc_round(xyz, labels, bounds, r2):
     cuda_build.require(xyz, "xyz", torch.float32, (m, 3), dev)
     cuda_build.require(labels, "labels", torch.int32, (m,), dev)
     cuda_build.require(bounds, "bounds", torch.int32, (6, m), dev)
+    cuda_build.require(plan, "plan", torch.int32, (plan.shape[0], 8), dev)
     out = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return out
     fn = _cc_launcher()
     with torch.cuda.device(dev):
-        code = fn(xyz.data_ptr(), labels.data_ptr(), bounds.data_ptr(), m, r2,
-                  out.data_ptr(), cuda_build.stream_of(xyz))
+        code = fn(xyz.data_ptr(), labels.data_ptr(), bounds.data_ptr(), plan.data_ptr(),
+                  plan.shape[0], CC_BLOCK, m, r2, out.data_ptr(), cuda_build.stream_of(xyz))
     cuda_build.check(code, "cc_round")
     cc_round.launches += 1
     return out
@@ -178,18 +183,60 @@ def cc_round(xyz, labels, bounds, r2):
 cc_round.launches = 0
 
 
+def cc_plan(column, bounds):
+    """The cc_round kernel's block plan over m sorted slots: [nb, 8] int32
+    rows (slot0, slot1, lo0, lo1, lo2, hi0, hi1, hi2).
+
+    Blocks are runs of at most CC_BLOCK consecutive slots of one column
+    (``column`` [m], non-decreasing along the slots: frame * X + cx, with
+    the slots outside the grid in a column of their own). For probe column
+    dx the block's non-empty runs all lie in [lo_dx, hi_dx), their smallest
+    start and largest end ((0, 0) where every run is empty): within a
+    column, run starts and ends do not decrease with the slot. Runs cleared
+    to (0, 0) at the grid's edge and runs over empty cells take no part.
+    Rows come heaviest first (slots times range lengths), so that the
+    kernel starts its longest blocks first."""
+    m = column.shape[0]
+    dev = column.device
+    idx = torch.arange(m, device=dev)
+    first = torch.ones(m, dtype=torch.bool, device=dev)
+    first[1:] = column[1:] != column[:-1]
+    col_first = torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
+    starts = (idx - col_first) % CC_BLOCK == 0
+    bid = torch.cumsum(starts, 0) - 1
+    slot0 = idx[starts]
+    nb = slot0.shape[0]
+    slot1 = torch.cat([slot0[1:], slot0.new_full((1,), m)])[:nb]
+    st, en = bounds[:3].long(), bounds[3:].long()
+    nonempty = en > st
+    big = torch.iinfo(torch.int64).max
+    lo = torch.full((3, nb), big, dtype=torch.int64, device=dev).scatter_reduce_(
+        1, bid.expand(3, -1), torch.where(nonempty, st, torch.full_like(st, big)), "amin")
+    hi = torch.zeros((3, nb), dtype=torch.int64, device=dev).scatter_reduce_(
+        1, bid.expand(3, -1), torch.where(nonempty, en, torch.zeros_like(en)), "amax")
+    lo = torch.where(lo == big, torch.zeros_like(lo), lo)
+    plan = torch.cat([slot0[None], slot1[None], lo, hi]).T
+    work = (slot1 - slot0) * (hi - lo).sum(0)
+    return plan[torch.argsort(work, descending=True, stable=True)].to(torch.int32).contiguous()
+
+
 def cc_prep(fxyz, valid, radius, F, X, Y):
-    """Sort, offsets and per-slot probe bounds of one chunk (the counterpart
-    of ``_cc_prep``). Returns the state consumed by ``cc_rounds``."""
+    """Sort, offsets, per-slot probe bounds and the kernel's block plan of one
+    chunk (the counterpart of ``_cc_prep``). Returns the state consumed by
+    ``cc_rounds``, whose rounds all reuse it."""
     n = fxyz.shape[0]
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=fxyz.device)
     g = _grid(fxyz, valid, radius, F, X, Y)
     si = g["sorted_idx"]
-    bounds = _probe_bounds(g["rf"][si], g["rcx"][si], g["rcy"][si], g["in_grid"][si],
+    in_grid = g["in_grid"][si]
+    bounds = _probe_bounds(g["rf"][si], g["rcx"][si], g["rcy"][si], in_grid,
                            g["offsets"], F, X, Y)
+    column = torch.where(in_grid, g["rf"][si] * X + g["rcx"][si],
+                         torch.full_like(si, F * X))
     return dict(sorted_xyz=fxyz[si, 1:4].to(torch.float32).contiguous(), sorted_idx=si,
-                node_ok=valid[si], bounds=bounds, r2=radius_r2(radius)[1])
+                node_ok=valid[si], bounds=bounds, plan=cc_plan(column, bounds),
+                r2=radius_r2(radius)[1])
 
 
 def cc_rounds(state, max_rounds=24):
@@ -198,13 +245,13 @@ def cc_rounds(state, max_rounds=24):
     then dense component ids in the caller's row order.
 
     Returns (component [n] int32 with -1 for invalid rows, num_components)."""
-    xyz, bounds, r2 = state["sorted_xyz"], state["bounds"], state["r2"]
+    xyz, bounds, r2, plan = state["sorted_xyz"], state["bounds"], state["r2"], state["plan"]
     si, node_ok = state["sorted_idx"], state["node_ok"]
     m = xyz.shape[0]
     slots = torch.arange(m, dtype=torch.int32, device=xyz.device)
     labels = slots
     for _ in range(max_rounds):
-        new = cc_round(xyz, labels, bounds, r2)
+        new = cc_round(xyz, labels, bounds, r2, plan)
         for _ in range(5):
             new = new[new.long()]
         changed = bool((new != labels).any())

@@ -54,12 +54,81 @@ def test_cuda_pair_min_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 7, 144, 2048])
+@pytest.mark.parametrize("P,Q", [(256, 512), (100, 300)])
+def test_cuda_pair_min_bit_equal_across_splits(cuda_device, C, P, Q):
+    """Every grid split the wrapper picks, ragged P and Q, fully masked rows
+    on each side, duplicated points (ties go to the first index), 1 km from
+    the origin."""
+    rng = np.random.RandomState(C + P)
+    a = rng.rand(C, P, 3).astype(np.float32) * 6 + 1000.0
+    a[:, P // 2:P // 2 + 10] = a[:, :10]  # duplicates inside a
+    b = rng.rand(C, Q, 3).astype(np.float32) * 6 + 1000.0
+    b[:, :20] = a[:, :20]  # exact matches: d2 = 0
+    b[:, 40:60] = a[:, :20]  # the same points again, later in b
+    am, bm = rng.rand(C, P) > 0.3, rng.rand(C, Q) > 0.3
+    am[:, :10] = bm[:, :20] = bm[:, 40:60] = True
+    if C > 1:
+        am[C // 2] = False  # a component whose backward rows are all empty
+        bm[C - 1] = False  # and one whose forward rows are
+    args = [T(x).to(cuda_device) for x in (a, b, am, bm)]
+    n0 = tpm.pair_min.launches
+    got = tpm.pair_min(*args)
+    want = tpm.pair_min_plain(*args)
+    assert tpm.pair_min.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and torch.equal(g, w)
+    fi, bi = got[1].cpu().numpy(), got[3].cpu().numpy()
+    has_a, has_b = am.any(1), bm.any(1)
+    assert (fi[has_b, :10] == np.arange(10)).all()  # first of the tied q's
+    assert (bi[has_a, :10] == np.arange(10)).all() and (bi[has_a, 40:50] == np.arange(10)).all()
+
+
+def _cc_case(case, rng):
+    """(fxyz, F, X, radius): 'dense_column' packs a frame's points into a few
+    columns, so a block's range outgrows one shared-memory chunk;
+    'frames' spreads three frames over many columns (blocks end at column
+    and frame boundaries); 'off_grid' leaves a third of the points outside
+    the grid, where their runs are empty."""
+    if case == "dense_column":
+        return _cloud(rng, 12000, frames=1, extent=3.0), 1, 16, 0.8
+    if case == "frames":
+        return _cloud(rng, 20000, frames=3, extent=40.0), 3, 64, 0.8
+    return _cloud(rng, 20000, frames=2, extent=40.0), 2, 36, 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense_column", "frames", "off_grid"])
+def test_cuda_cc_round_bit_equal(cuda_device, case):
+    rng = np.random.RandomState(1)
+    cloud, F, X, r = _cc_case(case, rng)
+    fxyz = T(cloud).to(cuda_device)
+    st = tsg.cc_prep(fxyz, None, r, F=F, X=X, Y=X)
+    plan = st["plan"]
+    span = (plan[:, 5:8] - plan[:, 2:5]).max()
+    if case == "dense_column":
+        assert span > 1024  # more than one chunk of csrc/cc_round.cu's CC_CHUNK
+    if case == "off_grid":
+        off = (st["bounds"] == 0).all(0)
+        assert 0 < int(off.sum()) < fxyz.shape[0]
+    m = fxyz.shape[0]
+    for labels in (torch.arange(m, dtype=torch.int32, device=cuda_device),
+                   T(rng.permutation(m).astype(np.int32)).to(cuda_device)):
+        got = tsg.cc_round(st["sorted_xyz"], labels, st["bounds"], st["r2"], plan)
+        assert torch.equal(got, tsg.cc_round_plain(st["sorted_xyz"], labels, st["bounds"],
+                                                   st["r2"]))
+    comp, num = tsg.connected_components_radius(fxyz, None, r, F=F, X=X, Y=X)
+    comp_p, num_p = tsg.connected_components_radius(fxyz.cpu(), None, r, F=F, X=X, Y=X)
+    assert num == num_p and torch.equal(comp.cpu(), comp_p)
+
+
+@pytest.mark.cuda
 def test_cuda_cc_and_scan_match_plain(cuda_device):
     rng = np.random.RandomState(0)
     fxyz = T(_cloud(rng, 20000, frames=3, extent=40.0)).to(cuda_device)
     st = tsg.cc_prep(fxyz, None, 0.8, F=3, X=64, Y=64)
     lab = torch.arange(fxyz.shape[0], dtype=torch.int32, device=cuda_device)
-    assert torch.equal(tsg.cc_round(st["sorted_xyz"], lab, st["bounds"], st["r2"]),
+    assert torch.equal(tsg.cc_round(st["sorted_xyz"], lab, st["bounds"], st["r2"], st["plan"]),
                        tsg.cc_round_plain(st["sorted_xyz"], lab, st["bounds"], st["r2"]))
     comp, num = tsg.connected_components_radius(fxyz, None, 0.8, F=3, X=64, Y=64)
     comp_p, num_p = tsg.connected_components_radius(fxyz.cpu(), None, 0.8, F=3, X=64, Y=64)
@@ -90,5 +159,6 @@ def test_cuda_wrappers_reject_bad_inputs_and_skip_empty_launches(cuda_device):
     n0 = tsg.cc_round.launches
     empty = tsg.cc_round(torch.zeros((0, 3), device=cuda_device),
                          torch.zeros(0, dtype=torch.int32, device=cuda_device),
-                         torch.zeros((6, 0), dtype=torch.int32, device=cuda_device), 1.0)
+                         torch.zeros((6, 0), dtype=torch.int32, device=cuda_device), 1.0,
+                         torch.zeros((0, 8), dtype=torch.int32, device=cuda_device))
     assert tsg.cc_round.launches == n0 and empty.shape == (0,)

@@ -13,6 +13,9 @@ neighbour ids must be equal, except argmins at float32 near-ties, which
 are excluded by the stated gap.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,10 +151,129 @@ def test_cc_round_plain_is_one_propagation_round(rng):
     st = tsg.cc_prep(T(fxyz), None, 0.7, F=1, X=16, Y=16)
     xyz = st["sorted_xyz"].numpy()
     labels = np.random.RandomState(5).permutation(300).astype(np.int32)
-    got = tsg.cc_round(st["sorted_xyz"], T(labels), st["bounds"], st["r2"]).numpy()
+    got = tsg.cc_round(st["sorted_xyz"], T(labels), st["bounds"], st["r2"],
+                       st["plan"]).numpy()
     d2 = ((xyz[:, None] - xyz[None]) ** 2).sum(-1)
     want = np.where(d2 <= st["r2"], labels[None, :], np.iinfo(np.int32).max).min(1)
     np.testing.assert_array_equal(got, np.minimum(want, labels))
+
+
+def _plan_case(seed, radius):
+    """A 2-frame cloud whose columns hold more than one block of slots,
+    with slots outside the X x X grid; returns cc_prep's state and the
+    column (frame * X + cx, or F * X off the grid) of every sorted slot."""
+    rng = np.random.RandomState(seed)
+    n, X = 8000, 8 if radius < 0.7 else 6  # the grid covers 4-5.4 m of the 6 m cloud
+    fxyz = T(_cloud(rng, n, frames=2, extent=6.0))
+    st = tsg.cc_prep(fxyz, None, radius, F=2, X=X, Y=X)
+    g = tsg._grid(fxyz, torch.ones(n, dtype=torch.bool), radius, 2, X, X)
+    si = g["sorted_idx"]
+    column = torch.where(g["in_grid"][si], g["rf"][si] * X + g["rcx"][si],
+                         torch.full_like(si, 2 * X))
+    return st, column.numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("radius", [0.5, 0.9])
+def test_cc_plan_covers_every_run_and_never_crosses_a_column(seed, radius):
+    st, column = _plan_case(seed, radius)
+    plan, bounds = st["plan"].numpy(), st["bounds"].numpy()
+    m = column.shape[0]
+    work = (plan[:, 1] - plan[:, 0]) * (plan[:, 5:8] - plan[:, 2:5]).sum(1)
+    assert (np.diff(work) <= 0).all()  # heaviest blocks first
+    plan = plan[np.argsort(plan[:, 0])]
+    slot0, slot1, lo, hi = plan[:, 0], plan[:, 1], plan[:, 2:5], plan[:, 5:8]
+    # the blocks tile the slots in order, at most CC_BLOCK each
+    assert slot0[0] == 0 and slot1[-1] == m and (slot0[1:] == slot1[:-1]).all()
+    assert ((slot1 - slot0 >= 1) & (slot1 - slot0 <= tsg.CC_BLOCK)).all()
+    # one column per block, and every column starts a block
+    assert (column[slot0] == column[slot1 - 1]).all()
+    col_starts = np.flatnonzero(np.r_[True, column[1:] != column[:-1]])
+    assert np.isin(col_starts, slot0).all()
+    assert (slot1 - slot0 < tsg.CC_BLOCK).sum() >= len(col_starts) - 1  # ragged column ends
+    assert (np.diff(slot0) == tsg.CC_BLOCK).any()  # some column holds several blocks
+    assert (column == column.max()).any() and (bounds[:, column == column.max()] == 0).all()
+    # every non-empty run lies in its block's range for its probe column
+    blk = np.repeat(np.arange(len(plan)), slot1 - slot0)
+    s, e = bounds[:3].T, bounds[3:].T
+    ne = e > s
+    assert ne.any()
+    assert ((lo[blk] <= s) | ~ne).all() and ((e <= hi[blk]) | ~ne).all()
+    # and the ranges are no wider than those runs
+    for d in range(3):
+        has = np.bincount(blk, weights=ne[:, d], minlength=len(plan)) > 0
+        assert (lo[~has, d] == 0).all() and (hi[~has, d] == 0).all()
+        first_s = np.full(len(plan), np.iinfo(np.int64).max)
+        np.minimum.at(first_s, blk[ne[:, d]], s[ne[:, d], d])
+        assert (lo[has, d] == first_s[has]).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("radius", [0.5, 0.9])
+def test_cc_union_range_rounds_equal_the_plain_round(seed, radius):
+    """The kernel's algorithm in plain PyTorch: every slot of a block scans
+    its block's range for each probe column and keeps a member j when
+    s_i <= j < e_i (the index test) and d2 <= r2."""
+    st, _ = _plan_case(seed, radius)
+    xyz, bounds, plan, r2 = st["sorted_xyz"], st["bounds"].long(), st["plan"].long(), st["r2"]
+    m = xyz.shape[0]
+    labels = T(np.random.RandomState(seed + 7).permutation(m).astype(np.int32))
+    out = labels.clone()
+    for slot0, slot1, *rng_ in plan.tolist():
+        i = torch.arange(slot0, slot1)
+        for d in range(3):
+            j = torch.arange(rng_[d], rng_[3 + d])
+            if not len(j):
+                continue
+            in_run = (bounds[d, i, None] <= j) & (j < bounds[3 + d, i, None])
+            diff = xyz[i, None, :] - xyz[None, j, :]
+            d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+                  + diff[..., 2] * diff[..., 2])
+            cand = torch.where(in_run & (d2 <= r2), labels[j][None, :],
+                               torch.full_like(d2, torch.iinfo(torch.int32).max, dtype=torch.int32))
+            out[i] = torch.minimum(out[i], cand.min(1).values)
+    want = tsg.cc_round_plain(xyz, labels, st["bounds"], r2)
+    assert not torch.equal(want, labels)  # the round propagates something
+    assert torch.equal(out, want)
+
+
+def _cu_define(source, name):
+    """The integer value of ``#define name`` in a kernel source file."""
+    text = (Path(tpm.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    return int(re.search(rf"^#define {name} (\d+)", text, re.M).group(1))
+
+
+@pytest.mark.parametrize("C", [1, 7, 144, 2048])
+@pytest.mark.parametrize("P,Q", [(256, 512), (256, 256), (100, 300)])
+def test_pair_min_split_covers_every_row_once(C, P, Q):
+    """The kernel's block/thread/row mapping (csrc/pair_min.cu, with its own
+    THREADS and SEGMENTS) writes each forward and backward row of each
+    component exactly once (from segment 0's thread), has every segment of
+    the row's scan run on it, and splits any number of staged points into
+    segments that cover them once."""
+    threads, segments = _cu_define("pair_min.cu", "THREADS"), _cu_define("pair_min.cu", "SEGMENTS")
+    rows_per_block = threads // segments
+    fb, bb = -(-P // rows_per_block), -(-Q // rows_per_block)  # as pair_min_launch
+    blocks = np.arange(C * (fb + bb))
+    c, s = blocks // (fb + bb), blocks % (fb + bb)
+    t = np.arange(threads)
+    g, h = t % rows_per_block, t // rows_per_block
+    for fwd, n in ((True, P), (False, Q)):
+        writes, scans = np.zeros((C, n), int), np.zeros((C, n), int)
+        sel = (s < fb) if fwd else (s >= fb)
+        sl = np.where(fwd, s, s - fb)[sel]
+        rows = sl[:, None] * rows_per_block + g[None, :]
+        cc = np.broadcast_to(c[sel][:, None], rows.shape)
+        ok = rows < n
+        np.add.at(scans, (cc[ok], rows[ok]), 1)
+        w = ok & (h[None, :] == 0)
+        np.add.at(writes, (cc[w], rows[w]), 1)
+        assert (writes == 1).all() and (scans == segments).all()
+    for n in range(max(P, Q) + 1):  # segment hh scans [n*hh/S, n*(hh+1)/S)
+        seg = [np.arange(n * hh // segments, n * (hh + 1) // segments) for hh in range(segments)]
+        assert np.array_equal(np.concatenate(seg), np.arange(n))
+    if C >= 144:  # a walk-sized C fills the card: at least 4 blocks per SM
+        assert len(blocks) >= 4 * 132
 
 
 @pytest.mark.parametrize("k", [1, 4])

@@ -8,6 +8,14 @@
 2. torch.profiler over one pass of the golden scene (12 frames x 20k
    points): device time by kernel, and the device's busy share of the
    pass's wall time.
+3. The ``pair_min`` and ``cc_round`` kernels over a whole bench pass: the
+   first (untimed) pass keeps a device copy of the inputs of every
+   ``pair_min`` call and every CC chunk; these are then replayed back to
+   back, under torch.profiler for the kernels' summed device time (the
+   pass's real shapes and mask densities, free of the walk's host gaps),
+   and, for ``pair_min``, between two CUDA events for the wrapper calls'
+   time. The replay goes through the same entry points on any tree of the
+   port, so two trees compare in one chip call.
 
 Usage (needs one NVIDIA GPU):
     python tools/profile_port_bench.py [--frames 100] [--points 90000]
@@ -38,6 +46,46 @@ def _timed(table, key, fn, sync):
     return wrapper
 
 
+def _copy(x):
+    if hasattr(x, "clone"):
+        return x.contiguous().clone()
+    if isinstance(x, dict):
+        return {k: _copy(v) for k, v in x.items()}
+    return x
+
+
+def _record(obj, name, store, of="args"):
+    """Make ``obj.name`` append a copy of each call's arguments (or result)
+    to ``store``; returns the original."""
+    orig = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        store.append(_copy(out) if of == "result" else tuple(_copy(a) for a in args))
+        return out
+
+    setattr(obj, name, wrapper)
+    return orig
+
+
+def _device_ms(fn, symbol, launches):
+    """torch.profiler's summed self device time (ms) of the kernels whose
+    name holds ``symbol`` over one call of ``fn``, which launches them
+    ``launches`` times (a session now and then records none: retried)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and symbol in e.key]
+        if sum(e.count for e in evs) == launches:
+            return sum(e.self_device_time_total for e in evs) / 1e3
+    raise RuntimeError(f"profiler did not see the {launches} launches of {symbol}")
+
+
 def main():
     import torch
 
@@ -60,7 +108,50 @@ def main():
     print(f"# gpu: {gpu}", flush=True)
     sync = torch.cuda.synchronize
     stages = pipeline.build_stages(pipeline.BENCH, device="cuda")
-    pipeline.run(scene_dict(args.frames, args.points), stages, sync=sync)  # warm-up
+    # warm-up, recording the kernels' inputs for section 3
+    pm_calls, cc_chunks = [], []
+    saved = [(tb, "_pair_min", _record(tb, "_pair_min", pm_calls)),
+             (sg, "cc_prep", _record(sg, "cc_prep", cc_chunks, of="result"))]
+    pipeline.run(scene_dict(args.frames, args.points), stages, sync=sync)
+    for obj, name, fn in saved:
+        setattr(obj, name, fn)
+
+    # ---- 3. pair_min and cc_round over the recorded pass, back to back
+    def replay_pair_min():
+        for c in pm_calls:
+            pm.pair_min(*c)
+
+    def replay_cc():
+        for st in cc_chunks:
+            sg.cc_rounds(st)
+
+    replay = {}
+    for name, fn, wrapper, symbol in (("pair_min", replay_pair_min, pm.pair_min,
+                                       "pair_min_kernel"),
+                                      ("cc_round", replay_cc, sg.cc_round, "cc_round_kernel")):
+        n0 = wrapper.launches
+        fn()  # warm, and counts the launches
+        n = wrapper.launches - n0
+        replay[name] = {"launches": n, "device_ms": _device_ms(fn, symbol, n)}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    replay_pair_min()
+    end.record()
+    sync()
+    shapes = defaultdict(int)
+    for a, b, *_ in pm_calls:
+        shapes[str((a.shape[0], a.shape[1], b.shape[1]))] += 1
+    replay["pair_min"].update(
+        call_ms=start.elapsed_time(end), shapes=dict(shapes),
+        valid_a=float(sum(int(c[2].sum()) for c in pm_calls)
+                      / sum(c[2].numel() for c in pm_calls)),
+        valid_b=float(sum(int(c[3].sum()) for c in pm_calls)
+                      / sum(c[3].numel() for c in pm_calls)))
+    for r in replay.values():
+        r["mean_device_ms"] = r["device_ms"] / r["launches"]
+    print(json.dumps({"replay_of_a_bench_pass": replay}), flush=True)
+    del pm_calls, cc_chunks
 
     # ---- 1. phase breakdown of the bench pass
     phases = defaultdict(float)
