@@ -18,15 +18,19 @@ Phases (any failure exits non-zero):
              the shapes the bench pass gave it (inputs recorded during the
              pass), plus fixed pair_min cases (C=2048, P=256, Q=512 with
              masks 1 km from the origin; C=7, P=100, Q=300 with duplicated
-             points) and a full CC of a golden chunk, all bit for bit;
-             times of kernel, plain version and library yardstick, and the
-             bound from the H100 data sheet
+             points), radius_scan at k=8 besides the claims' k=1, and a full
+             CC of a golden chunk, all bit for bit; times of kernel, plain
+             version and library yardstick, and the bound from the H100 data
+             sheet; for radius_scan also its block plan's pair counts and
+             the device and wall time of its prep (scan_prep) and of prep
+             plus kernel
 Each kernel row has two times. ``device_ms`` is the kernel's own device time
 per launch, from torch.profiler (the summed self device time of the kernel's
-launches over the number of calls); ``ms`` repeats it. ``call_ms`` is CUDA
-events around back-to-back calls of the Python wrapper, over the number of
-calls: where the wrapper's host work outlasts the kernel, the card idles
-between launches and ``call_ms - device_ms`` is that host cost.
+launches over the number of launches recorded); ``ms`` repeats it.
+``call_ms`` is CUDA events around back-to-back calls of the Python wrapper,
+over the number of calls: where the wrapper's host work outlasts the
+kernel, the card idles between launches and ``call_ms - device_ms`` is that
+host cost.
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -85,18 +89,19 @@ def _copy(x):
 
 class Recorder:
     """Wrap a function where its caller looks it up and keep a copy of the
-    arguments (or the result, ``of="result"``) of its largest call as
-    measured by ``size_fn``; the function itself runs untouched. Wrapping
-    the kernels' callers rather than the kernel wrappers leaves each
-    wrapper's launch count on the wrapper. ``key_fn`` (optional) counts
-    calls by key. ``seconds`` is the host time of this bookkeeping, which a
-    timed run includes (with any wait for the device that ``size_fn``
-    forces)."""
+    arguments (``args``, ``kwargs``) of its largest call as measured by
+    ``size_fn``, and as ``value`` those arguments or, with ``of="result"``,
+    a copy of the call's result; the function itself runs untouched.
+    Wrapping the kernels' callers rather than the kernel wrappers leaves
+    each wrapper's launch count on the wrapper. ``key_fn`` (optional)
+    counts calls by key. ``seconds`` is the host time of this bookkeeping,
+    which a timed run includes (with any wait for the device that
+    ``size_fn`` forces)."""
 
     def __init__(self, module, name, size_fn, of="args", key_fn=None):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.value, self.kwargs, self.size = None, None, -1
+        self.value, self.args, self.kwargs, self.size = None, None, None, -1
         self.keys, self.seconds = Counter(), 0.0
 
         def wrapper(*args, **kwargs):
@@ -107,7 +112,8 @@ class Recorder:
             s = size_fn(out) if of == "result" else size_fn(*args)
             if s > self.size:
                 self.size, self.kwargs = s, dict(kwargs)
-                self.value = _copy(out) if of == "result" else tuple(_copy(a) for a in args)
+                self.args = tuple(_copy(a) for a in args)
+                self.value = _copy(out) if of == "result" else self.args
             self.seconds += time.perf_counter() - t0
             return out
 
@@ -137,9 +143,12 @@ def cuda_time_ms(fn, reps, warmup=2):
 
 
 def device_ms(fn, symbol, reps):
-    """Device time per call of ``fn``: torch.profiler's self device time of
-    the kernels whose name contains ``symbol``, summed over ``reps`` calls,
-    over ``reps``. Fails unless a session sees every call launch one."""
+    """Device time per launch of the kernels whose name contains ``symbol``
+    over ``reps`` calls of ``fn`` (each launches one; the wrappers' own
+    counters check that): torch.profiler's summed self device time over the
+    launches a session records. A session that misses launches is retried;
+    after three, the mean over the launches recorded stands, and none
+    recorded fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,7 +156,7 @@ def device_ms(fn, symbol, reps):
         return float("nan")
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profiling session now and then records no kernels
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -156,14 +165,47 @@ def device_ms(fn, symbol, reps):
                if e.device_type.name == "CUDA" and symbol in e.key]
         launches = sum(e.count for e in evs)
         if launches >= reps:
-            return sum(e.self_device_time_total for e in evs) / 1e3 / reps
+            break
         log(f"# profiler saw {launches} launches of {symbol} in {reps} calls; again")
-    fail(f"profiler saw {launches} launches of {symbol} in {reps} calls")
+    if launches == 0:
+        fail(f"profiler saw no launch of {symbol} in {reps} calls")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / launches
 
 
 def kernel_times(fn, symbol, reps):
     """(device_ms, call_ms) of one wrapper call; see the module docstring."""
     return device_ms(fn, symbol, reps), cuda_time_ms(fn, reps)
+
+
+def whole_call_ms(fn, reps):
+    """(device ms, wall ms, top) per call of ``fn``, which may launch many
+    kernels: the summed self device time of everything it runs on the card
+    (torch.profiler: kernels, copies, fills), the host wall time with a
+    synchronize on each side of each call, and the four largest device
+    entries as [name, launches, ms] per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    wall = 0.0
+    for _ in range(reps):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    if not torch.cuda.is_available():  # rehearsal: no device time
+        return float("nan"), wall * 1e3 / reps, []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                 key=lambda e: -e.self_device_time_total)
+    top = [[e.key[:60], e.count / reps, e.self_device_time_total / 1e3 / reps] for e in evs[:4]]
+    return sum(e.self_device_time_total for e in evs) / 1e3 / reps, wall * 1e3 / reps, top
 
 
 def smi(query):
@@ -219,9 +261,10 @@ def run_pairs(bounds):
     return int((bounds[3:].long() - bounds[:3].long()).clamp(min=0).sum())
 
 
-def cc_union_pairs(bounds, plan):
-    """(slot, position) pairs that cc_round's union ranges hold: each
-    block's slots times its three ranges, and each warp's 32 lanes times
+def union_pairs(bounds, plan):
+    """(row, position) pairs that the union ranges of a block plan hold, for
+    cc_round (rows: slots) and radius_scan (rows: sorted queries): each
+    block's rows times its three ranges, and each warp's 32 lanes times
     their union of runs (what the kernel's warps scan, idle lanes too)."""
     import torch
 
@@ -402,7 +445,7 @@ def main():
     k_lab = sg.cc_round(*args)
     p_lab = sg.cc_round_plain(*args[:4])
     bad = int((k_lab != p_lab).sum())
-    blk_pairs, warp_pairs = cc_union_pairs(bnds, plan)
+    blk_pairs, warp_pairs = union_pairs(bnds, plan)
     log(f"# cc_round (bench, {xyz.shape[0]} slots, {run_pairs(bnds)} run pairs): "
         f"label mismatches {bad}; {plan.shape[0]} blocks, whose ranges hold {blk_pairs} "
         f"pairs ({blk_pairs / run_pairs(bnds):.4f}x the runs), warp ranges {warp_pairs} "
@@ -428,22 +471,41 @@ def main():
         plain_ms=cuda_time_ms(lambda: sg.cc_round_plain(*args[:4]), 2),
         bound_ms=bms, bound_by=by, library_ms=None, shape=[m, pairs]))
 
-    # radius_scan: the bench pass's largest tracked-window claim
+    # radius_scan: the bench pass's largest tracked-window claim (k = 1, as
+    # the claims ask), then the same window at k = 8
     st = recs["radius_scan"].value
-    table, q, bnds, r2, k = st["table"], st["q_xyz"], st["bounds"], st["r2"], 1
-    kd, kp = sg.radius_scan(table, q, bnds, r2, k)
-    pd, pp = sg.radius_scan_plain(table, q, bnds, r2, k)
-    bad = int((kp != pp).sum())
-    fin = torch.isfinite(pd)
-    err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
-    log(f"# radius_scan (bench window, {q.shape[0]} queries, {table.shape[0]} refs, k={k}): "
-        f"index mismatches {bad}, max abs d2 err {err:.3g}")
-    if bad or err > 0 or not torch.equal(fin, torch.isfinite(kd)):
-        fail("radius_scan disagrees with its plain version")
+    table, q, bnds, r2, plan = st["table"], st["q_xyz"], st["bounds"], st["r2"], st["plan"]
+    for k in (8, 1):  # ends at k = 1, which the timings below use
+        kd, kp = sg.radius_scan(table, q, bnds, r2, k, plan)
+        pd, pp = sg.radius_scan_plain(table, q, bnds, r2, k)
+        bad = int((kp != pp).sum())
+        fin = torch.isfinite(pd)
+        err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
+        log(f"# radius_scan (bench window, {q.shape[0]} queries, {table.shape[0]} refs, "
+            f"k={k}): index mismatches {bad}, max abs d2 err {err:.3g}")
+        if bad or err > 0 or not torch.equal(fin, torch.isfinite(kd)):
+            fail(f"radius_scan (k={k}) disagrees with its plain version")
     pairs = run_pairs(bnds)
     n, m = table.shape[0], q.shape[0]
-    bms, by = bound_ms(pairs * 10, n * 12 + m * (12 + 24) + m * k * 8)
-    d_ms, c_ms = kernel_times(lambda: sg.radius_scan(table, q, bnds, r2, k),
+    blk_pairs, warp_pairs = union_pairs(bnds, plan)
+    prep_args, prep_kwargs = recs["radius_scan"].args, recs["radius_scan"].kwargs
+
+    def prep_and_scan():
+        s = sg.scan_prep(*prep_args, **prep_kwargs)
+        sg.radius_scan(s["table"], s["q_xyz"], s["bounds"], s["r2"], k, s["plan"])
+
+    prep_dev, prep_wall, prep_top = whole_call_ms(
+        lambda: sg.scan_prep(*prep_args, **prep_kwargs), 5)
+    both_dev, both_wall, _ = whole_call_ms(prep_and_scan, 5)
+    log(f"# radius_scan (bench window): {float((bnds[3:] > bnds[:3]).any(0).float().mean()):.4f} "
+        f"of the queries have a non-empty run; {plan.shape[0]} blocks, whose ranges hold "
+        f"{blk_pairs} pairs ({blk_pairs / pairs:.4f}x the {pairs} run pairs), warp ranges "
+        f"{warp_pairs} lane pairs ({warp_pairs / pairs:.4f}x); scan_prep device {prep_dev:.5f} "
+        f"ms, wall {prep_wall:.5f} ms; scan_prep + radius_scan device {both_dev:.5f} ms, "
+        f"wall {both_wall:.5f} ms; scan_prep's largest device entries [name, launches, ms] "
+        f"{json.dumps(prep_top)}")
+    bms, by = bound_ms(pairs * 10, n * 12 + m * (12 + 24) + plan.shape[0] * 32 + m * k * 8)
+    d_ms, c_ms = kernel_times(lambda: sg.radius_scan(table, q, bnds, r2, k, plan),
                               "radius_scan_kernel", 20)
     rows.append(dict(
         name="radius_scan", route="cuda", source="pcseqlearning_tpu_torch/csrc/radius_scan.cu",

@@ -12,7 +12,7 @@
 // and one min per (slot, run member) pair, so it grows with point density;
 // bytes are the sorted points, labels, run bounds and the block plan. The
 // design moves pair data through shared memory:
-//   * A block plan, built once per CC chunk by ops/sorted_grid.py::cc_plan
+//   * A block plan, built once per CC chunk by ops/sorted_grid.py::block_plan
 //     and reused by all of the chunk's rounds, cuts the sorted slots into
 //     blocks of at most CC_THREADS consecutive slots that never cross a
 //     column (frame, cx). Within a column the runs' starts and ends do not

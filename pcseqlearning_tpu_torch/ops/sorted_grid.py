@@ -11,12 +11,16 @@ hand-written CUDA kernels then walk the runs:
   * ``cc_round`` (csrc/cc_round.cu, replaces ``_cc_kernel``): one
     label-propagation round, the min label over in-radius run members.
     ``connected_components_radius`` repeats it with five pointer-jump hops
-    per round, at most 24 rounds, as ``_cc_rounds`` did. The kernel works
-    in blocks of consecutive slots of one column whose runs' union ranges
-    ``cc_plan`` computes once per chunk (in ``cc_prep``).
+    per round, at most 24 rounds, as ``_cc_rounds`` did.
   * ``radius_scan`` (csrc/radius_scan.cu, replaces ``_scan_kernel``): the
     k nearest in-radius run members, ascending, ties to the lower sorted
-    position, padded with +inf / -1.
+    position, padded with +inf / -1. Its prep sorts the queries by cell, as
+    the XLA prep did, and ``radius_neighbors_sorted`` returns the results
+    in the caller's order.
+
+Both kernels work in blocks of consecutive sorted rows of one column whose
+runs' union ranges ``block_plan`` computes in the prep (once per CC chunk,
+once per scan).
 
 The TPU kernels copied a fixed union window per block of 256 queries and
 counted the blocks whose runs outgrew it; the CUDA kernels walk whole runs,
@@ -30,6 +34,7 @@ it launches its kernel and counts the launch (``cc_round.launches``,
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -38,7 +43,9 @@ from . import cuda_build
 
 _BIGI = 2 ** 31 - 1
 _PAIR_BUDGET = 1 << 24  # (query, run member) pairs per plain-version chunk
-CC_BLOCK = 128  # slots per block of the cc_round kernel (CC_THREADS in csrc/cc_round.cu)
+# rows per plan block: the threads of a cc_round or radius_scan block
+# (CC_THREADS, SCAN_THREADS in csrc/)
+PLAN_BLOCK = 128
 
 
 def radius_r2(radius):
@@ -156,8 +163,8 @@ def _cc_launcher():
 
 def cc_round(xyz, labels, bounds, r2, plan):
     """One round over the sorted slots: xyz [m, 3] f32, labels [m] i32,
-    bounds [6, m] i32, r2 float, plan [nb, 8] i32 (``cc_plan``: the kernel's
-    blocks; the plain version needs none) -> new labels [m] i32."""
+    bounds [6, m] i32, r2 float, plan [nb, 8] i32 (``block_plan``: the
+    kernel's blocks; the plain version needs none) -> new labels [m] i32."""
     if xyz.device.type == "cpu":
         return cc_round_plain(xyz, labels, bounds, r2)
     if xyz.device.type != "cuda":
@@ -174,7 +181,7 @@ def cc_round(xyz, labels, bounds, r2, plan):
     fn = _cc_launcher()
     with torch.cuda.device(dev):
         code = fn(xyz.data_ptr(), labels.data_ptr(), bounds.data_ptr(), plan.data_ptr(),
-                  plan.shape[0], CC_BLOCK, m, r2, out.data_ptr(), cuda_build.stream_of(xyz))
+                  plan.shape[0], PLAN_BLOCK, m, r2, out.data_ptr(), cuda_build.stream_of(xyz))
     cuda_build.check(code, "cc_round")
     cc_round.launches += 1
     return out
@@ -183,41 +190,41 @@ def cc_round(xyz, labels, bounds, r2, plan):
 cc_round.launches = 0
 
 
-def cc_plan(column, bounds):
-    """The cc_round kernel's block plan over m sorted slots: [nb, 8] int32
-    rows (slot0, slot1, lo0, lo1, lo2, hi0, hi1, hi2).
+def block_plan(column, bounds):
+    """The block plan of the cc_round and radius_scan kernels over m rows
+    sorted by cell (CC slots or scan queries): [nb, 8] int32 rows (row0,
+    row1, lo0, lo1, lo2, hi0, hi1, hi2).
 
-    Blocks are runs of at most CC_BLOCK consecutive slots of one column
-    (``column`` [m], non-decreasing along the slots: frame * X + cx, with
-    the slots outside the grid in a column of their own). For probe column
+    Blocks are runs of at most PLAN_BLOCK consecutive rows of one column
+    (``column`` [m], non-decreasing along the rows: frame * X + cx, with
+    the rows outside the grid in a column of their own). For probe column
     dx the block's non-empty runs all lie in [lo_dx, hi_dx), their smallest
-    start and largest end ((0, 0) where every run is empty): within a
-    column, run starts and ends do not decrease with the slot. Runs cleared
-    to (0, 0) at the grid's edge and runs over empty cells take no part.
-    Rows come heaviest first (slots times range lengths), so that the
+    start and largest end ((0, 0) where every run is empty). Within a
+    column of CC slots, run starts and ends do not decrease with the slot,
+    so the ranges are as narrow as the runs; queries one cell off the grid,
+    sorted into an edge column, only widen their block's ranges. Runs
+    cleared to (0, 0) at the grid's edge and runs over empty cells take no
+    part. Rows come heaviest first (rows times range lengths), so that the
     kernel starts its longest blocks first."""
     m = column.shape[0]
     dev = column.device
     idx = torch.arange(m, device=dev)
-    first = torch.ones(m, dtype=torch.bool, device=dev)
-    first[1:] = column[1:] != column[:-1]
-    col_first = torch.cummax(torch.where(first, idx, torch.zeros_like(idx)), 0).values
-    starts = (idx - col_first) % CC_BLOCK == 0
-    bid = torch.cumsum(starts, 0) - 1
-    slot0 = idx[starts]
-    nb = slot0.shape[0]
-    slot1 = torch.cat([slot0[1:], slot0.new_full((1,), m)])[:nb]
-    st, en = bounds[:3].long(), bounds[3:].long()
+    col_first = torch.searchsorted(column, column)  # each row's column starts here
+    row0 = idx[(idx - col_first) % PLAN_BLOCK == 0]
+    row1 = torch.cat([row0[1:], row0.new_full((1,), m)])[:row0.shape[0]]
+    # each block's rows as [nb, PLAN_BLOCK], a short block repeating its
+    # last row (which moves neither the min nor the max)
+    rows = torch.minimum(row0[:, None] + torch.arange(PLAN_BLOCK, device=dev), row1[:, None] - 1)
+    st, en = bounds[:3, rows], bounds[3:, rows]
     nonempty = en > st
-    big = torch.iinfo(torch.int64).max
-    lo = torch.full((3, nb), big, dtype=torch.int64, device=dev).scatter_reduce_(
-        1, bid.expand(3, -1), torch.where(nonempty, st, torch.full_like(st, big)), "amin")
-    hi = torch.zeros((3, nb), dtype=torch.int64, device=dev).scatter_reduce_(
-        1, bid.expand(3, -1), torch.where(nonempty, en, torch.zeros_like(en)), "amax")
-    lo = torch.where(lo == big, torch.zeros_like(lo), lo)
-    plan = torch.cat([slot0[None], slot1[None], lo, hi]).T
-    work = (slot1 - slot0) * (hi - lo).sum(0)
-    return plan[torch.argsort(work, descending=True, stable=True)].to(torch.int32).contiguous()
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(nonempty, st, big).amin(2)
+    hi = torch.where(nonempty, en, 0).amax(2)
+    lo = torch.where(lo == big, 0, lo)
+    row0, row1 = row0.to(torch.int32), row1.to(torch.int32)
+    plan = torch.cat([row0[None], row1[None], lo, hi]).T
+    work = (row1 - row0).long() * (hi - lo).long().sum(0)
+    return plan[torch.argsort(work, descending=True, stable=True)].contiguous()
 
 
 def cc_prep(fxyz, valid, radius, F, X, Y):
@@ -235,7 +242,7 @@ def cc_prep(fxyz, valid, radius, F, X, Y):
     column = torch.where(in_grid, g["rf"][si] * X + g["rcx"][si],
                          torch.full_like(si, F * X))
     return dict(sorted_xyz=fxyz[si, 1:4].to(torch.float32).contiguous(), sorted_idx=si,
-                node_ok=valid[si], bounds=bounds, plan=cc_plan(column, bounds),
+                node_ok=valid[si], bounds=bounds, plan=block_plan(column, bounds),
                 r2=radius_r2(radius)[1])
 
 
@@ -307,33 +314,39 @@ def _scan_launcher():
     fn = cuda_build.load("radius_scan.cu").radius_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, ctypes.c_float, i, p, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def radius_scan(ref_xyz, q_xyz, bounds, r2, k):
-    """ref_xyz [n, 3] f32 (sorted table), q_xyz [m, 3] f32, bounds [6, m]
-    i32, r2 float, k <= 8 -> (d2 [m, k] f32, sorted positions [m, k] i32)."""
+def radius_scan(ref_xyz, q_xyz, bounds, r2, k, plan):
+    """ref_xyz [n, 3] f32 (sorted table), q_xyz [m, 3] f32 (queries sorted
+    by cell), bounds [6, m] i32, r2 float, k <= 8, plan [nb, 8] i32
+    (``block_plan`` over the sorted queries: the kernel's blocks; the plain
+    version needs none) -> (d2 [m, k] f32, sorted positions [m, k] i32)."""
     if not 1 <= k <= KMAX:
         raise ValueError(f"radius_scan: k={k} outside 1..{KMAX}")
     if q_xyz.device.type == "cpu":
         return radius_scan_plain(ref_xyz, q_xyz, bounds, r2, k)
     if q_xyz.device.type != "cuda":
         raise ValueError(f"radius_scan: unsupported device {q_xyz.device}")
+    if not math.isfinite(r2):  # the kernel's radius test is d2 < nextafter(r2, +inf)
+        raise ValueError(f"radius_scan: r2={r2} must be finite")
     n, m = ref_xyz.shape[0], q_xyz.shape[0]
     dev = q_xyz.device
     cuda_build.require(ref_xyz, "ref_xyz", torch.float32, (n, 3), dev)
     cuda_build.require(q_xyz, "q_xyz", torch.float32, (m, 3), dev)
     cuda_build.require(bounds, "bounds", torch.int32, (6, m), dev)
+    cuda_build.require(plan, "plan", torch.int32, (plan.shape[0], 8), dev)
     out_d = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_p = torch.empty((m, k), dtype=torch.int32, device=dev)
     if m == 0:
         return out_d, out_p
     fn = _scan_launcher()
     with torch.cuda.device(dev):
-        code = fn(ref_xyz.data_ptr(), q_xyz.data_ptr(), bounds.data_ptr(), m, r2, k,
-                  out_d.data_ptr(), out_p.data_ptr(), cuda_build.stream_of(q_xyz))
+        code = fn(ref_xyz.data_ptr(), q_xyz.data_ptr(), bounds.data_ptr(), plan.data_ptr(),
+                  plan.shape[0], PLAN_BLOCK, m, r2, k, out_d.data_ptr(), out_p.data_ptr(),
+                  cuda_build.stream_of(q_xyz))
     cuda_build.check(code, "radius_scan")
     radius_scan.launches += 1
     return out_d, out_p
@@ -343,7 +356,12 @@ radius_scan.launches = 0
 
 
 def scan_prep(ref_fxyz, query_fxyz, radius, F, X, Y, ref_valid=None, query_valid=None):
-    """Sorted reference table and per-query run bounds for ``radius_scan``."""
+    """Sorted reference table, the queries sorted by cell with their run
+    bounds, and the kernel's block plan (the counterpart of the XLA prep of
+    ``radius_neighbors_sorted``). Queries are ordered stably by the JAX
+    key (frame, clip(cx), clip(cy)); queries outside the frames or invalid
+    take the key L = F * X * Y and sort last, with empty runs. ``q_order``
+    [m] is the caller's row of each sorted query."""
     dev = ref_fxyz.device
     if ref_valid is None:
         ref_valid = torch.ones(ref_fxyz.shape[0], dtype=torch.bool, device=dev)
@@ -352,11 +370,19 @@ def scan_prep(ref_fxyz, query_fxyz, radius, F, X, Y, ref_valid=None, query_valid
     g = _grid(ref_fxyz, ref_valid, radius, F, X, Y)
     qf, qcx, qcy = _cell_ids(query_fxyz, g["origin"], g["inv_cell"], g["f_min"])
     q_in = query_valid & (qf >= 0) & (qf < F)
+    # the key in int32, as the JAX prep computes it: (column * Y + clip(cy)),
+    # L = (F * X) * Y for the queries outside the frames
+    column = torch.where(q_in, qf * X + torch.clamp(qcx, 0, X - 1),
+                         torch.full_like(qf, F * X)).to(torch.int32)
+    key = column * Y + torch.clamp(qcy, 0, Y - 1).to(torch.int32) * q_in
+    q_order = torch.sort(key, stable=True).indices
+    bounds = _probe_bounds(qf, qcx, qcy, q_in, g["offsets"], F, X, Y)[:, q_order]
+    column = column[q_order]
     return dict(
         table=ref_fxyz[g["sorted_idx"], 1:4].to(torch.float32).contiguous(),
         sorted_idx=g["sorted_idx"],
-        q_xyz=query_fxyz[:, 1:4].to(torch.float32).contiguous(),
-        bounds=_probe_bounds(qf, qcx, qcy, q_in, g["offsets"], F, X, Y),
+        q_xyz=query_fxyz[q_order, 1:4].to(torch.float32).contiguous(),
+        bounds=bounds, plan=block_plan(column, bounds), q_order=q_order,
         r2=radius_r2(radius)[1], query_valid=query_valid,
     )
 
@@ -366,11 +392,14 @@ def radius_neighbors_sorted(ref_fxyz, query_fxyz, radius, k, F, X, Y,
     """K nearest same-frame neighbours within ``radius``.
 
     Returns (ref_idx [M, k] int64 with -1 pads, dist2 [M, k] f32 with +inf
-    pads, mask [M, k] bool), neighbours ascending by distance. F, X, Y bound
-    the cell grid as in the JAX version (cells outside it have no
-    candidates)."""
+    pads, mask [M, k] bool) in the caller's query order, neighbours
+    ascending by distance. F, X, Y bound the cell grid as in the JAX
+    version (cells outside it have no candidates)."""
     st = scan_prep(ref_fxyz, query_fxyz, radius, F, X, Y, ref_valid, query_valid)
-    d2, pos = radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], k)
+    d2, pos = radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], k, st["plan"])
+    # the one unsort: sorted query i is the caller's row q_order[i]
+    d2 = torch.empty_like(d2).index_copy_(0, st["q_order"], d2)
+    pos = torch.empty_like(pos).index_copy_(0, st["q_order"], pos)
     ok = (pos >= 0) & torch.isfinite(d2) & st["query_valid"][:, None]
     ref_idx = torch.where(ok, st["sorted_idx"][pos.long().clamp(min=0)],
                           torch.full_like(pos, -1, dtype=torch.int64))

@@ -135,10 +135,57 @@ def test_cuda_cc_and_scan_match_plain(cuda_device):
     assert num == num_p and torch.equal(comp.cpu(), comp_p)
     q = fxyz[:5000] + 0.05
     sc = tsg.scan_prep(fxyz, q, 0.8, F=3, X=64, Y=64)
-    for k in (1, 8):
-        got = tsg.radius_scan(sc["table"], sc["q_xyz"], sc["bounds"], sc["r2"], k)
+    for k in (1, 4, 8):
+        n0 = tsg.radius_scan.launches
+        got = tsg.radius_scan(sc["table"], sc["q_xyz"], sc["bounds"], sc["r2"], k, sc["plan"])
+        assert tsg.radius_scan.launches == n0 + 1
         want = tsg.radius_scan_plain(sc["table"], sc["q_xyz"], sc["bounds"], sc["r2"], k)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _window_case(rng):
+    """A tracked window as the claims send it: 11 frames of a dense cloud
+    (the queries, in frame order, each frame padded to 24,000 rows with
+    zero rows marked invalid) against a sparse set of extracted points (the
+    references: one query in five, 300 of them twice, so exact ties), with
+    a dense patch whose blocks' ranges outgrow one shared-memory chunk."""
+    F, n = 11, 20000
+    frames = []
+    for f in range(F):
+        pts = _cloud(rng, n, frames=1, extent=60.0)
+        pts[:6000, 1:3] = pts[:6000, 1:3] * 0.02 + 5.0  # a dense patch
+        pts[:, 0] = f
+        frames.append(np.concatenate([pts, np.zeros((4000, 4), np.float32)]))
+    q = np.concatenate(frames)
+    qv = (np.arange(len(q)) % 24000) < n
+    ref = q[qv][rng.rand(int(qv.sum())) < 0.2]
+    ref = np.concatenate([ref, ref[:300]])
+    return ref, q, qv, 0.5, F, 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_cuda_radius_scan_window_bit_equal(cuda_device, k):
+    """Unsorted window queries with padded rows, exact ties, empty blocks and
+    multi-chunk blocks: the kernel equals its plain version, and the public
+    entry on the card equals it on the CPU."""
+    ref, q, qv, r, F, X = _window_case(np.random.RandomState(k))
+    args = (T(ref).to(cuda_device), T(q).to(cuda_device), r)
+    sc = tsg.scan_prep(*args, F, X, X, query_valid=T(qv).to(cuda_device))
+    plan = sc["plan"]
+    span = (plan[:, 5:8] - plan[:, 2:5]).sum(1)
+    assert (span == 0).any() and (span > 1024).any()  # csrc/radius_scan.cu's SCAN_CHUNK
+    got = tsg.radius_scan(sc["table"], sc["q_xyz"], sc["bounds"], sc["r2"], k, plan)
+    want = tsg.radius_scan_plain(sc["table"], sc["q_xyz"], sc["bounds"], sc["r2"], k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if k > 1:
+        tie = (want[0][:, 1:] == want[0][:, :-1]) & (want[1][:, 1:] >= 0)
+        assert tie.any()
+    out = tsg.radius_neighbors_sorted(*args, k, F, X, X, query_valid=T(qv).to(cuda_device))
+    out_cpu = tsg.radius_neighbors_sorted(*(a.cpu() if hasattr(a, "cpu") else a for a in args),
+                                          k, F, X, X, query_valid=T(qv))
+    for g, w in zip(out, out_cpu):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
@@ -162,3 +209,15 @@ def test_cuda_wrappers_reject_bad_inputs_and_skip_empty_launches(cuda_device):
                          torch.zeros((6, 0), dtype=torch.int32, device=cuda_device), 1.0,
                          torch.zeros((0, 8), dtype=torch.int32, device=cuda_device))
     assert tsg.cc_round.launches == n0 and empty.shape == (0,)
+    n0 = tsg.radius_scan.launches
+    d2, pos = tsg.radius_scan(torch.zeros((4, 3), device=cuda_device),
+                              torch.zeros((0, 3), device=cuda_device),
+                              torch.zeros((6, 0), dtype=torch.int32, device=cuda_device), 1.0, 2,
+                              torch.zeros((0, 8), dtype=torch.int32, device=cuda_device))
+    assert tsg.radius_scan.launches == n0 and d2.shape == (0, 2) and pos.shape == (0, 2)
+    with pytest.raises(ValueError):  # the kernel's radius test needs a finite r2
+        tsg.radius_scan(torch.zeros((4, 3), device=cuda_device),
+                        torch.zeros((1, 3), device=cuda_device),
+                        torch.zeros((6, 1), dtype=torch.int32, device=cuda_device),
+                        float("inf"), 1, torch.zeros((1, 8), dtype=torch.int32,
+                                                     device=cuda_device))

@@ -183,15 +183,15 @@ def test_cc_plan_covers_every_run_and_never_crosses_a_column(seed, radius):
     assert (np.diff(work) <= 0).all()  # heaviest blocks first
     plan = plan[np.argsort(plan[:, 0])]
     slot0, slot1, lo, hi = plan[:, 0], plan[:, 1], plan[:, 2:5], plan[:, 5:8]
-    # the blocks tile the slots in order, at most CC_BLOCK each
+    # the blocks tile the slots in order, at most PLAN_BLOCK each
     assert slot0[0] == 0 and slot1[-1] == m and (slot0[1:] == slot1[:-1]).all()
-    assert ((slot1 - slot0 >= 1) & (slot1 - slot0 <= tsg.CC_BLOCK)).all()
+    assert ((slot1 - slot0 >= 1) & (slot1 - slot0 <= tsg.PLAN_BLOCK)).all()
     # one column per block, and every column starts a block
     assert (column[slot0] == column[slot1 - 1]).all()
     col_starts = np.flatnonzero(np.r_[True, column[1:] != column[:-1]])
     assert np.isin(col_starts, slot0).all()
-    assert (slot1 - slot0 < tsg.CC_BLOCK).sum() >= len(col_starts) - 1  # ragged column ends
-    assert (np.diff(slot0) == tsg.CC_BLOCK).any()  # some column holds several blocks
+    assert (slot1 - slot0 < tsg.PLAN_BLOCK).sum() >= len(col_starts) - 1  # ragged column ends
+    assert (np.diff(slot0) == tsg.PLAN_BLOCK).any()  # some column holds several blocks
     assert (column == column.max()).any() and (bounds[:, column == column.max()] == 0).all()
     # every non-empty run lies in its block's range for its probe column
     blk = np.repeat(np.arange(len(plan)), slot1 - slot0)
@@ -276,7 +276,7 @@ def test_pair_min_split_covers_every_row_once(C, P, Q):
         assert len(blocks) >= 4 * 132
 
 
-@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("k", [1, 4, 8])
 def test_radius_scan_matches_pallas_interpret_and_brute_force(rng, k):
     n = 300
     fxyz = _cloud(rng, n, extent=8.0, zs=1.0)
@@ -307,7 +307,7 @@ def test_radius_scan_ties_go_to_lower_sorted_position():
     ref = np.array([[0, 0.5, 0.0, 0.0], [0, -0.5, 0.0, 0.0], [0, 0.0, 0.9, 0.0]], np.float32)
     q = np.array([[0, 0.0, 0.0, 0.0]], np.float32)
     st = tsg.scan_prep(T(ref), T(q), 1.0, F=1, X=8, Y=8)
-    d2, pos = tsg.radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], 3)
+    d2, pos = tsg.radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], 3, st["plan"])
     assert d2[0, :2].tolist() == [0.25, 0.25]
     assert pos[0, 0] < pos[0, 1]  # the tie keeps sorted-position order
     assert pos[0, 2] >= 0 and d2[0, 2] == pytest.approx(0.81)
@@ -317,4 +317,164 @@ def test_kernel_wrappers_validate_k():
     st = tsg.scan_prep(T(np.zeros((2, 4), np.float32)), T(np.zeros((1, 4), np.float32)),
                        1.0, F=1, X=4, Y=4)
     with pytest.raises(ValueError):
-        tsg.radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], 9)
+        tsg.radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], 9, st["plan"])
+
+
+def _scan_case(seed):
+    """Reference points filling a 2-frame, 8 x 8-cell grid at r = 0.9 (100
+    of them duplicated: exact ties), and shuffled queries of every kind:
+    inside the grid, one cell outside it on each side and at the corners
+    (their runs reach the edge columns and rows), three cells outside (no
+    runs), in a frame outside the grid, invalid, padded rows (zeros,
+    invalid, as the tracking window's table pads), and duplicated queries.
+    Returns (ref_fxyz, query_fxyz, query_valid, radius, F, X) with X = Y."""
+    rng = np.random.RandomState(seed)
+    r, F, X = 0.9, 2, 8
+    ref = _cloud(rng, 1400, frames=F, extent=X * r - 0.3)
+    ref = np.concatenate([ref, ref[rng.choice(len(ref), 100, replace=False)]])
+    ox, oy = ref[:, 1].min(), ref[:, 2].min()  # the grid's origin
+    inside = _cloud(rng, 1200, frames=F, extent=X * r - 0.3)
+    inside[:, 1:3] += np.array([ox, oy], np.float32) - inside[:, 1:3].min(0)
+    cells = np.array([-1, 0, X // 2, X - 1, X, -3, X + 2], np.float32)
+    ex, ey = np.meshgrid(cells, cells)
+    ring = np.stack([np.zeros(ex.size), ox + (ex.ravel() + 0.5) * r,
+                     oy + (ey.ravel() + 0.5) * r, np.zeros(ex.size)], 1).astype(np.float32)
+    ring = np.concatenate([ring, ring + np.array([1, 0.2, -0.2, 0.1], np.float32)])
+    other_frame = inside[:40] + np.array([3, 0, 0, 0], np.float32)
+    q = np.concatenate([inside, ring, other_frame, inside[:150]])  # the last: duplicates
+    valid = rng.rand(len(q)) > 0.1
+    q = np.concatenate([q, np.zeros((300, 4), np.float32)])
+    valid = np.concatenate([valid, np.zeros(300, bool)])
+    perm = rng.permutation(len(q))
+    return ref, q[perm], valid[perm], r, F, X
+
+
+def _caller_order_bounds(ref, q, valid, r, F, X):
+    """Run bounds of the queries in the caller's order, from the same grid."""
+    ref, q, valid = T(ref), T(q), T(valid)
+    g = tsg._grid(ref, torch.ones(len(ref), dtype=torch.bool), r, F, X, X)
+    qf, qcx, qcy = tsg._cell_ids(q, g["origin"], g["inv_cell"], g["f_min"])
+    q_in = valid & (qf >= 0) & (qf < F)
+    return tsg._probe_bounds(qf, qcx, qcy, q_in, g["offsets"], F, X, X)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scan_plan_covers_every_query_once_and_holds_its_runs(seed):
+    ref, q, valid, r, F, X = _scan_case(seed)
+    st = tsg.scan_prep(T(ref), T(q), r, F, X, X, query_valid=T(valid))
+    plan, bounds = st["plan"].numpy(), st["bounds"].numpy()
+    order = st["q_order"].numpy()
+    m = len(q)
+    assert np.array_equal(np.sort(order), np.arange(m))  # a permutation
+    # the sorted queries' bounds are the caller-order bounds, permuted
+    assert np.array_equal(bounds, _caller_order_bounds(ref, q, valid, r, F, X).numpy()[:, order])
+    plan = plan[np.argsort(plan[:, 0])]
+    q0, q1, lo, hi = plan[:, 0], plan[:, 1], plan[:, 2:5], plan[:, 5:8]
+    # the blocks tile the sorted queries in order: each query in one block
+    assert q0[0] == 0 and q1[-1] == m and (q0[1:] == q1[:-1]).all()
+    assert ((q1 - q0 >= 1) & (q1 - q0 <= tsg.PLAN_BLOCK)).all()
+    blk = np.repeat(np.arange(len(plan)), q1 - q0)
+    s, e = bounds[:3].T, bounds[3:].T
+    ne = e > s
+    assert ne.any() and (~ne.any(1)).sum() > tsg.PLAN_BLOCK
+    assert ((lo[blk] <= s) | ~ne).all() and ((e <= hi[blk]) | ~ne).all()
+    # queries one cell off the grid have runs; those three cells off do not
+    g = tsg._grid(T(ref), torch.ones(len(ref), dtype=torch.bool), r, F, X, X)
+    _, cx, cy = (t.numpy() for t in tsg._cell_ids(T(q)[order], g["origin"], g["inv_cell"],
+                                                  g["f_min"]))
+    assert ne[(cx == -1) | (cx == X) | (cy == -1) | (cy == X)].any()
+    assert not ne[(cx <= -3) | (cx >= X + 2) | (cy <= -3) | (cy >= X + 2)].any()
+    # a block whose queries have no runs has empty ranges; and the queries
+    # without a frame in the grid (invalid, padded, other frames) sort last
+    empty = np.bincount(blk, weights=ne.any(1), minlength=len(plan)) == 0
+    assert empty.sum() >= 2 and (lo[empty] == 0).all() and (hi[empty] == 0).all()
+    f = np.round(q[order, 0]).astype(int) - int(g["f_min"])
+    off = ~valid[order] | (f < 0) | (f >= F)
+    assert not off[:np.argmax(off)].any() and off[np.argmax(off):].all()
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_radius_neighbors_sorted_equals_the_plain_scan_of_unsorted_queries(seed, k):
+    """Sorting the queries changes nothing: the public entry equals
+    radius_scan_plain over the queries in the caller's order."""
+    ref, q, valid, r, F, X = _scan_case(seed)
+    idx, d2, mask = tsg.radius_neighbors_sorted(T(ref), T(q), r, k, F, X, X,
+                                                query_valid=T(valid))
+    st = tsg.scan_prep(T(ref), T(q), r, F, X, X, query_valid=T(valid))
+    bounds = _caller_order_bounds(ref, q, valid, r, F, X)
+    pd, pp = tsg.radius_scan_plain(st["table"], T(q[:, 1:4]), bounds, st["r2"], k)
+    ok = pp >= 0
+    assert torch.equal(mask, ok & torch.isfinite(pd))
+    assert torch.equal(d2, torch.where(ok, pd, torch.full_like(pd, float("inf"))))
+    assert torch.equal(idx, torch.where(ok, st["sorted_idx"][pp.long().clamp(min=0)],
+                                        torch.full_like(pp, -1, dtype=torch.int64)))
+    assert mask[:, 0].sum() > 100 and not mask[T(~valid)].any()
+    if k > 1:
+        assert mask[:, k - 1].any()  # some queries fill their whole list
+    # duplicated reference points tie: the lower sorted position comes first
+    tie = (pd[:, 1:] == pd[:, :-1]) & (pp[:, 1:] >= 0)
+    assert k == 1 or (tie.any() and (pp[:, 1:][tie] > pp[:, :-1][tie]).all())
+    assert tsg.radius_scan.launches == 0
+
+
+def _insert(bd, bp, d, j):
+    """csrc/radius_scan.cu's insert(), over rows of numpy arrays."""
+    for t in range(tsg.KMAX - 1, 0, -1):
+        up, here = d < bd[:, t - 1], d < bd[:, t]
+        bp[:, t] = np.where(up, bp[:, t - 1], np.where(here, j, bp[:, t]))
+        bd[:, t] = np.where(up, bd[:, t - 1], np.where(here, d, bd[:, t]))
+    first = d < bd[:, 0]
+    bd[first, 0], bp[first, 0] = d[first], j[first] if np.ndim(j) else j
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_scan_block_algorithm_equals_the_plain_scan(k):
+    """The kernel's algorithm in NumPy: each block visits dx = 0, 1, 2 and
+    each of its ranges in ascending position; every query keeps the pairs
+    of its own runs in a register list whose empty entries hold the least
+    float above r2 (so d < list[-1] is also the radius test), with the
+    kernel's stable insertion. Each query must see its positions in
+    ascending order (the tie rule rests on it) and end equal to
+    radius_scan_plain."""
+    ref, q, valid, r, F, X = _scan_case(3)
+    st = tsg.scan_prep(T(ref), T(q), r, F, X, X, query_valid=T(valid))
+    xyz, qx = st["table"].numpy(), st["q_xyz"].numpy()
+    bounds, r2 = st["bounds"].numpy(), np.float32(st["r2"])
+    empty = np.nextafter(r2, np.float32(np.inf))
+    out_d = np.full((len(qx), k), np.inf, np.float32)
+    out_p = np.full((len(qx), k), -1, np.int32)
+    for q0, q1, *rng_ in st["plan"].tolist():
+        i = np.arange(q0, q1)
+        bd = np.where(np.arange(tsg.KMAX) < tsg.KMAX - k, -np.inf, empty).astype(np.float32)
+        bd = np.repeat(bd[None], len(i), 0)
+        bp = np.full((len(i), tsg.KMAX), -1, np.int64)
+        last = np.full(len(i), -1)
+        for dx in range(3):
+            for j in range(rng_[dx], rng_[3 + dx]):
+                diff = qx[i] - xyz[j]
+                d = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) + diff[:, 2] * diff[:, 2]
+                run = (bounds[dx, i] <= j) & (j < bounds[3 + dx, i])
+                assert (last[run] < j).all()  # ascending positions
+                last[run] = j
+                take = run & (d < bd[:, -1])
+                if take.any():
+                    sub_d, sub_p = bd[take], bp[take]
+                    _insert(sub_d, sub_p, d[take], j)
+                    bd[take], bp[take] = sub_d, sub_p
+        got = bp[:, tsg.KMAX - k:]
+        out_p[i] = got
+        out_d[i] = np.where(got >= 0, bd[:, tsg.KMAX - k:], np.inf)
+    pd, pp = tsg.radius_scan_plain(st["table"], st["q_xyz"], st["bounds"], st["r2"], k)
+    assert (pp >= 0).any()
+    np.testing.assert_array_equal(out_p, pp.numpy())
+    np.testing.assert_array_equal(out_d, pd.numpy())
+
+
+def test_scan_of_no_queries_gives_empty_results():
+    ref = T(np.array([[0, 0.5, 0.0, 0.0], [0, 2.0, 1.0, 0.0]], np.float32))
+    st = tsg.scan_prep(ref, T(np.zeros((0, 4), np.float32)), 1.0, F=1, X=8, Y=8)
+    assert st["plan"].shape == (0, 8) and st["bounds"].shape == (6, 0)
+    idx, d2, mask = tsg.radius_neighbors_sorted(ref, T(np.zeros((0, 4), np.float32)), 1.0, 2,
+                                                F=1, X=8, Y=8)
+    assert idx.shape == d2.shape == mask.shape == (0, 2)

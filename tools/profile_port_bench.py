@@ -8,14 +8,20 @@
 2. torch.profiler over one pass of the golden scene (12 frames x 20k
    points): device time by kernel, and the device's busy share of the
    pass's wall time.
-3. The ``pair_min`` and ``cc_round`` kernels over a whole bench pass: the
-   first (untimed) pass keeps a device copy of the inputs of every
-   ``pair_min`` call and every CC chunk; these are then replayed back to
-   back, under torch.profiler for the kernels' summed device time (the
-   pass's real shapes and mask densities, free of the walk's host gaps),
-   and, for ``pair_min``, between two CUDA events for the wrapper calls'
-   time. The replay goes through the same entry points on any tree of the
-   port, so two trees compare in one chip call.
+3. The three kernels over a whole bench pass: the first (untimed) pass
+   keeps a device copy of the inputs of every ``pair_min`` call, every CC
+   chunk and every ``scan_prep`` call (its arguments and its result);
+   these are then replayed back to back, under torch.profiler for the
+   kernels' summed device time (the pass's real shapes and mask densities,
+   free of the walk's host gaps), and, for ``pair_min``, between two CUDA
+   events for the wrapper calls' time. ``radius_scan`` is replayed at the
+   claims' k = 1; its prep is replayed too: ``scan_prep`` over the pass,
+   and ``scan_prep`` alone and followed by ``radius_scan`` at the pass's
+   largest window, each with the device time of everything it runs and
+   its wall time between synchronizes. The replay goes through the same
+   entry points on any tree of the port (a tree whose ``radius_scan``
+   takes no block plan is called without one), so two trees compare in one
+   chip call.
 
 Usage (needs one NVIDIA GPU):
     python tools/profile_port_bench.py [--frames 100] [--points 90000]
@@ -55,13 +61,18 @@ def _copy(x):
 
 
 def _record(obj, name, store, of="args"):
-    """Make ``obj.name`` append a copy of each call's arguments (or result)
-    to ``store``; returns the original."""
+    """Make ``obj.name`` append a copy of each call's arguments, its result
+    (``of="result"``) or both (``of="call"``: (args, kwargs, result)) to
+    ``store``; returns the original."""
     orig = getattr(obj, name)
 
     def wrapper(*args, **kwargs):
         out = orig(*args, **kwargs)
-        store.append(_copy(out) if of == "result" else tuple(_copy(a) for a in args))
+        if of == "result":
+            store.append(_copy(out))
+        else:
+            a = tuple(_copy(x) for x in args)
+            store.append(a if of == "args" else (a, _copy(kwargs), _copy(out)))
         return out
 
     setattr(obj, name, wrapper)
@@ -84,6 +95,38 @@ def _device_ms(fn, symbol, launches):
         if sum(e.count for e in evs) == launches:
             return sum(e.self_device_time_total for e in evs) / 1e3
     raise RuntimeError(f"profiler did not see the {launches} launches of {symbol}")
+
+
+def _whole_ms(fns):
+    """(device ms, wall ms, top) summed over the calls ``fns``:
+    torch.profiler's self device time of everything they run on the card
+    (kernels, copies, fills), the host wall time with a synchronize on each
+    side of each call, and the six largest device entries as [name,
+    launches, ms]. A profiling session that records nothing is retried."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:  # warm
+        f()
+    wall = 0.0
+    for f in fns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for f in fns:
+                f()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                     key=lambda e: -e.self_device_time_total)
+        dev = sum(e.self_device_time_total for e in evs)
+        if dev > 0:
+            return dev / 1e3, wall * 1e3, [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                                           for e in evs[:6]]
+    raise RuntimeError("profiler recorded no device time")
 
 
 def main():
@@ -109,14 +152,15 @@ def main():
     sync = torch.cuda.synchronize
     stages = pipeline.build_stages(pipeline.BENCH, device="cuda")
     # warm-up, recording the kernels' inputs for section 3
-    pm_calls, cc_chunks = [], []
+    pm_calls, cc_chunks, scans = [], [], []
     saved = [(tb, "_pair_min", _record(tb, "_pair_min", pm_calls)),
-             (sg, "cc_prep", _record(sg, "cc_prep", cc_chunks, of="result"))]
+             (sg, "cc_prep", _record(sg, "cc_prep", cc_chunks, of="result")),
+             (sg, "scan_prep", _record(sg, "scan_prep", scans, of="call"))]
     pipeline.run(scene_dict(args.frames, args.points), stages, sync=sync)
     for obj, name, fn in saved:
         setattr(obj, name, fn)
 
-    # ---- 3. pair_min and cc_round over the recorded pass, back to back
+    # ---- 3. the three kernels over the recorded pass, back to back
     def replay_pair_min():
         for c in pm_calls:
             pm.pair_min(*c)
@@ -125,10 +169,20 @@ def main():
         for st in cc_chunks:
             sg.cc_rounds(st)
 
+    def scan(st):
+        plan = (st["plan"],) if "plan" in st else ()  # a tree without the block plan
+        sg.radius_scan(st["table"], st["q_xyz"], st["bounds"], st["r2"], 1, *plan)
+
+    def replay_scan():
+        for _, _, st in scans:
+            scan(st)
+
     replay = {}
     for name, fn, wrapper, symbol in (("pair_min", replay_pair_min, pm.pair_min,
                                        "pair_min_kernel"),
-                                      ("cc_round", replay_cc, sg.cc_round, "cc_round_kernel")):
+                                      ("cc_round", replay_cc, sg.cc_round, "cc_round_kernel"),
+                                      ("radius_scan", replay_scan, sg.radius_scan,
+                                       "radius_scan_kernel")):
         n0 = wrapper.launches
         fn()  # warm, and counts the launches
         n = wrapper.launches - n0
@@ -148,10 +202,32 @@ def main():
                       / sum(c[2].numel() for c in pm_calls)),
         valid_b=float(sum(int(c[3].sum()) for c in pm_calls)
                       / sum(c[3].numel() for c in pm_calls)))
+
+    def pairs(st):
+        return int((st["bounds"][3:].long() - st["bounds"][:3].long()).clamp(min=0).sum())
+
+    def prep(a, kw):
+        return lambda: sg.scan_prep(*a, **kw)
+
+    def prep_and_scan(a, kw):
+        return lambda: scan(sg.scan_prep(*a, **kw))
+
+    a, kw, st = max(scans, key=lambda c: pairs(c[2]))
+    prep_dev, prep_wall, _ = _whole_ms([prep(*c[:2]) for c in scans])
+    w_prep_dev, w_prep_wall, w_prep_top = _whole_ms([prep(a, kw)])
+    w_dev, w_wall, _ = _whole_ms([prep_and_scan(a, kw)])
+    replay["radius_scan"].update(
+        prep_device_ms=prep_dev, prep_wall_ms=prep_wall,
+        run_pairs=sum(pairs(c[2]) for c in scans),
+        queries=sum(c[2]["q_xyz"].shape[0] for c in scans),
+        window={"queries": st["q_xyz"].shape[0], "refs": st["table"].shape[0],
+                "run_pairs": pairs(st), "prep_device_ms": w_prep_dev, "prep_wall_ms": w_prep_wall,
+                "prep_scan_device_ms": w_dev, "prep_scan_wall_ms": w_wall,
+                "prep_top_device": w_prep_top})
     for r in replay.values():
         r["mean_device_ms"] = r["device_ms"] / r["launches"]
     print(json.dumps({"replay_of_a_bench_pass": replay}), flush=True)
-    del pm_calls, cc_chunks
+    del pm_calls, cc_chunks, scans, a, kw, st
 
     # ---- 1. phase breakdown of the bench pass
     phases = defaultdict(float)
