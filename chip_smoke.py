@@ -31,6 +31,25 @@ launches over the number of launches recorded); ``ms`` repeats it.
 over the number of calls: where the wrapper's host work outlasts the
 kernel, the card idles between launches and ``call_ms - device_ms`` is that
 host cost.
+  5. walks  the other tracking walks and registration:
+             (a) tools/walk_parity.py's comparison at bench density (24 frames
+                 x 90k points, bench ground, proposal at 1.25 m): ground and
+                 proposal once, then tracking with the host walk and with the
+                 batched walk; the host path's kernel launches (cc_round and
+                 radius_scan > 0, pair_min 0), its _nn1 calls by path (both
+                 > 0), peak memory; host box mIoU >= 0.50, and the batched
+                 walk within tests/test_walk_parity.py's drift bounds of it
+             (b) the golden scene as a collated batch through SimpleReg.forward,
+                 once with WALK_MODE="stepped" (>= 1 frame on the device walk)
+                 and once with the GD solver, each within the drift bounds of
+                 the host walk on that run's proposals
+             (c) register_to_next_frame on the rigid scene of
+                 tests/test_registration_oracle.py at 300 points (brute-force
+                 correspondences) and 20,000 (hash grid), and
+                 gd_register_components at both sizes: the card's transforms
+                 equal a CPU run's within 1e-3 (the ICP's after 1, 2, 4 and 8
+                 iterations), the ICP's moved points on both (and the GD
+                 solver's at 300 points) within 0.08 m of the true motion
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -44,6 +63,7 @@ itself without a card.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -286,7 +306,211 @@ def union_pairs(bounds, plan):
     return int(block), int(((hi - lo).clamp(min=0) * 32).sum())
 
 
+def timed(table, key, fn, sync):
+    """``fn`` with its calls' wall time, between synchronizes, added to
+    ``table[key]``."""
+    def wrapper(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        table[key] += time.perf_counter() - t0
+        return out
+
+    return wrapper
+
+
+def walk_phase(dev, size, sync, kernels, rehearse):
+    """Phase 5(a): host walk against batched walk on the same proposals;
+    the host walk's time split into its ICP levels (voxel samples and
+    registration), velocity smoothing, nearest-neighbour member extraction
+    and the trace claims with box scoring."""
+    from collections import defaultdict
+
+    import torch
+
+    from pcseqlearning_tpu_torch import pipeline
+    from pcseqlearning_tpu_torch.convert import config_from_jax
+    from pcseqlearning_tpu_torch.preprocessing import (ClusterProposal, ClusterTracking,
+                                                       GroundPlaneRemover)
+    from pcseqlearning_tpu_torch.preprocessing import cluster_tracking as ct_mod
+    from pcseqlearning_tpu_torch.scene import scene_dict
+    from pcseqlearning_tpu_torch.utils import telemetry
+
+    d = scene_dict(*size, frame_id="parity_seq_000")
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    telemetry.reset()
+    t0 = time.perf_counter()
+    d = GroundPlaneRemover(config_from_jax(pipeline.BENCH["ground"]), device=dev)(d)
+    d = ClusterProposal(config_from_jax(pipeline._proposal_cfg([1.25], ["component_rad1x25"])),
+                        device=dev)(d)
+    sync()
+    prep_s = time.perf_counter() - t0
+    walks, ious, frames = {}, {}, {}
+    for mode in ("host", "batched"):  # the host path's counts span ground to host walk
+        if mode == "batched":
+            for fn in kernels.values():
+                fn.launches = 0
+        tr = ClusterTracking(config_from_jax(dict(pipeline.BENCH["tracking"], WALK_MODE=mode)),
+                             device=dev)
+        if mode == "host":
+            split = defaultdict(float)
+            patched = [(ct_mod.ClusterTracking, "_register_level", "icp_levels"),
+                       (ct_mod, "_smooth_velos", "smoothing"),
+                       (ct_mod, "_nn_match", "nn_extraction"),
+                       (ct_mod.ClusterTracking, "extract_traces_and_update_boxes", "claims")]
+            saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+            for obj, name, key in patched:
+                setattr(obj, name, timed(split, key, getattr(obj, name), sync))
+        t0 = time.perf_counter()
+        out = tr(dict(d))
+        sync()
+        if mode == "host":
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        walks[mode] = pipeline.walk_summary(out["seq_boxes"], time.perf_counter() - t0)
+        ious[mode] = out["seq_boxes"].best_iou
+        frames[mode] = tr.walk_frames
+        if mode == "host":
+            host_launches = {name: fn.launches for name, fn in kernels.items()}
+            host_counts = telemetry.snapshot()
+    rec, errs = pipeline.walk_drift(ious["host"], ious["batched"])
+    rec = dict(scene=f"{size[0]} frames x {size[1]} points", ground_and_proposal_s=prep_s,
+               host=walks["host"], batched=walks["batched"], **rec)
+    log(f"# walk_parity {json.dumps(rec)}")
+    peak = 0.0 if rehearse else torch.cuda.max_memory_allocated() / 1e9
+    nn1 = {k: host_counts.get(f"registration_nn1_{k}", 0) for k in ("brute", "hash")}
+    log(f"# walk_parity host walk split (s, between synchronizes): "
+        f"{json.dumps(dict(split, total=walks['host']['wall_s']))}")
+    log(f"# walk_parity host path (ground, proposal, host walk): kernel launches "
+        f"{json.dumps(host_launches)}; _nn1 calls by path {json.dumps(nn1)}; ICP calls "
+        f"{host_counts.get('registration_icp_calls', 0)}, iterations "
+        f"{host_counts.get('registration_icp_iterations', 0)}; walk frames "
+        f"{json.dumps(frames)}; peak memory {peak:.3f} GB")
+    if rehearse:
+        return
+    if not walks["host"]["box_miou"] >= 0.50:
+        errs.append(f"host box mIoU {walks['host']['box_miou']:.4f} < 0.50")
+    if host_launches["pair_min"] or not (host_launches["cc_round"] > 0
+                                         and host_launches["radius_scan"] > 0):
+        errs.append(f"host path kernel launches {host_launches}")
+    if not (nn1["brute"] > 0 and nn1["hash"] > 0):
+        errs.append(f"host walk _nn1 calls by path {nn1}: both paths must run")
+    if frames["host"]["host"] == 0 or frames["batched"]["batched"] == 0:
+        errs.append(f"walk frames {frames}")
+    if errs:
+        fail("walk parity: " + "; ".join(errs))
+
+
+def golden_walks_phase(dev, size):
+    """Phase 5(b): the golden scene as a collated batch through
+    SimpleReg.forward with the device walk and with the GD solver, each
+    against the host walk on that run's proposals. Returns failures."""
+    import copy
+
+    from pcseqlearning_tpu_torch import pipeline
+    from pcseqlearning_tpu_torch.convert import config_from_jax
+    from pcseqlearning_tpu_torch.preprocessing import ClusterTracking, SimpleReg
+    from pcseqlearning_tpu_torch.scene import scene_batch
+
+    errs = []
+    for name in ("stepped", "GD"):
+        tracking = copy.deepcopy(pipeline.PARITY["tracking"])
+        tracking.WALK_MODE = name if name == "stepped" else "host"
+        if name == "GD":
+            tracking.REGISTRATION.SOLVER = "GD"
+        chain = [dict(config_from_jax(cfg), NAME=cls) for cfg, cls in (
+            (pipeline.PARITY["ground"], "GroundPlaneRemover"),
+            (pipeline.PARITY["proposal"], "ClusterProposal"), (tracking, "ClusterTracking"))]
+        reg = SimpleReg(dict(PREPROCESSORS=chain), device=dev)
+        batch = scene_batch(*size, seeds=(0,), name="parity_seq")
+        t0 = time.perf_counter()
+        reg.forward(batch)
+        wall = time.perf_counter() - t0
+        seq = batch["seq_0"]
+        frames = reg.preprocessors[-1].walk_frames
+        host = ClusterTracking(config_from_jax(dict(pipeline.PARITY["tracking"],
+                                                    WALK_MODE="host")), device=dev)
+        t0 = time.perf_counter()
+        host_boxes = host(dict(seq))["seq_boxes"]
+        host_wall = time.perf_counter() - t0
+        rec, drift = pipeline.walk_drift(host_boxes.best_iou, seq["seq_boxes"].best_iou)
+        log(f"# golden {name} (SimpleReg.forward {wall:.3f} s): stats "
+            f"{json.dumps(pipeline.parity_stats(seq))}; walk frames {json.dumps(frames)}; "
+            f"host walk on the same proposals "
+            f"{json.dumps(pipeline.walk_summary(host_boxes, host_wall))}; against it "
+            f"{json.dumps(rec)}")
+        errs += [f"{name}: {e}" for e in drift]
+        if name == "stepped" and frames["device"] < 1:
+            errs.append(f"stepped: no frame took the device walk ({frames})")
+    return errs
+
+
+def registration_phase(dev, sizes):
+    """Phase 5(c): ICP and the GD solver on the rigid scene, card against
+    CPU and against the true motion. The ICP is held to the CPU after 1, 2,
+    4 and 8 iterations: a full run's correspondences pass near-ties that
+    last-bit differences (atomic sums, another matrix product) resolve the
+    other way, and its loss countdown can stop a few iterations apart, so
+    full runs are held to the true motion instead. Returns failures."""
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch.preprocessing.registration import register_to_next_frame
+    from pcseqlearning_tpu_torch.preprocessing.solver_utils import gd_register_components
+    from pcseqlearning_tpu_torch.scene import make_rigid_scene
+    from pcseqlearning_tpu_torch.utils import telemetry
+
+    errs = []
+    for per in sizes:
+        m, c, ref, gt = make_rigid_scene(0, per=per, rot_deg=5.0, trans=0.3)
+        n = len(m)
+        gt_moved = np.einsum("nij,nj->ni", gt[c][:, :3, :3], m) + gt[c][:, :3, 3]
+        args = [torch.as_tensor(a) for a in (m, c, np.ones(n, bool), ref, np.ones(n, bool))]
+        for solver in ("icp", "gd"):
+            def run(d, max_iter=40):
+                a = [x.to(d) for x in args]
+                telemetry.reset()
+                t0 = time.perf_counter()
+                if solver == "icp":
+                    T = register_to_next_frame(*a, 5, 2.0, angle_regularizer=10.0,
+                                               max_iter=max_iter, stopping_delta=5e-2)[0]
+                else:
+                    T = gd_register_components(*a, 5, 2.0)[0]
+                T = T.cpu().numpy()
+                info = dict(s=time.perf_counter() - t0, **{
+                    k[len("registration_"):]: v for k, v in telemetry.snapshot().items()
+                    if k.startswith("registration_")})
+                return T, info
+
+            runs = {d.type: run(d) for d in (dev, torch.device("cpu"))}
+            errors = {}
+            for kind, (T, _) in runs.items():
+                moved = np.einsum("nij,nj->ni", T[c][:, :3, :3].astype(np.float64), m) + T[c][:, :3, 3]
+                errors[kind] = float(np.median(np.linalg.norm(moved - gt_moved, axis=-1)))
+            if solver == "icp":  # by iteration count
+                diffs = {k: float(np.abs(run(dev, k)[0] - run(torch.device("cpu"), k)[0]).max())
+                         for k in (1, 2, 4, 8)}
+            else:
+                diffs = {"all": float(np.abs(runs[dev.type][0] - runs["cpu"][0]).max())}
+            log(f"# registration ({solver}, {n} points): median error to the true motion "
+                f"{json.dumps(errors)} m; card vs CPU max |dT| {json.dumps(diffs)}; runs "
+                f"{json.dumps({k: v[1] for k, v in runs.items()})}")
+            if max(diffs.values()) > 1e-3:
+                errs.append(f"{solver} at {n} points: card and CPU transforms differ by "
+                            f"{max(diffs.values()):.3g}")
+            if (solver == "icp" or per == sizes[0]) and not max(errors.values()) < 0.08:
+                errs.append(f"{solver} at {n} points: median error {errors} m >= 0.08")
+    return errs
+
+
 def main():
+    # cuBLAS keeps a fixed workspace, so that phase 5's matrix products are
+    # reproducible too (read when the first cuBLAS handle is made)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     rehearse = "--cpu-rehearsal" in sys.argv[1:]
@@ -299,12 +523,14 @@ def main():
     if rehearse:
         gpu_line, dev = "cpu rehearsal", torch.device("cpu")
         golden_size, bench_size, fixed_c = (6, 2500), (10, 2500), 16
+        walk_size, rigid_sizes = (10, 2500), (60, 400)
 
         def sync():
             pass
     else:
         gpu_line, dev = smi("name,power.limit"), torch.device("cuda")
         golden_size, bench_size, fixed_c = (12, 20_000), (100, 90_000), 2048
+        walk_size, rigid_sizes = (24, 90_000), (60, 4000)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -515,6 +741,25 @@ def main():
         bound_ms=bms, bound_by=by, library_ms=None, shape=[m, n, pairs]))
     log(f"# clocks after the kernel phase (sm, max sm, power): "
         f"{'cpu rehearsal' if rehearse else smi('clocks.sm,clocks.max.sm,power.draw')}")
+
+    # ---- 5. the other walks and registration ---------------------------------
+    # PyTorch's deterministic algorithms (atomic-free index_add_ and friends):
+    # the walks are chaotic, and phase 5(a)'s box fractions moved by 0.04
+    # between two otherwise identical runs, so its bounds are checked on a
+    # reproducible run (the kernels above are timed without it)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    walk_phase(dev, walk_size, sync, kernels, rehearse)
+    log(f"# phase 5(a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs = golden_walks_phase(dev, golden_size)
+    log(f"# phase 5(b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs += registration_phase(dev, rigid_sizes)
+    log(f"# phase 5(c): {time.perf_counter() - t0:.1f} s")
+    torch.use_deterministic_algorithms(False)
+    if errs and not rehearse:
+        fail("; ".join(errs))
 
     for r in rows:
         log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "

@@ -1,18 +1,22 @@
 """pcseqlearning_tpu_torch — the PyTorch/CUDA port of pcseqlearning_tpu.
 
 This package ports the unsupervised cluster-sequence extraction pipeline
-(ground removal -> multi-radius cluster proposal -> batched tracking) to
-PyTorch on an NVIDIA H100. The JAX package stays beside it as the
-reference; this package imports nothing of it and never imports ``jax``.
+(ground removal -> multi-radius cluster proposal -> cluster tracking by the
+batched, host or device walk, with ICP or gradient-descent registration,
+driven per sequence by SimpleReg) to PyTorch on an NVIDIA H100. The JAX
+package stays beside it as the reference; this package imports nothing of
+it and never imports ``jax``.
 
 Layers:
-  ops/            tensor ops and the three hand-written CUDA kernels
-                  (csrc/): pair_min (ICP correspondences), cc_round (radius
+  ops/            tensor ops, the spatial-hash neighbour search and the
+                  three hand-written CUDA kernels (csrc/): pair_min (ICP
+                  correspondences of the batched walk), cc_round (radius
                   connected components) and radius_scan (k-NN claims)
-  preprocessing/  GroundPlaneRemover, ClusterProposal, ClusterTracking
+  preprocessing/  GroundPlaneRemover, ClusterProposal, ClusterTracking,
+                  registration, the GD solver, SimpleReg
   utils/          EDict, bucketing, frame index, telemetry
   convert.py      JAX-side config + environment -> explicit port config
-  scene.py        the synthetic benchmark scene
+  scene.py        the synthetic scenes
 
 Entry points run on the card (``device="cuda"``) and raise when CUDA is
 absent, unless the caller passes ``device="cpu"``; on CPU tensors every

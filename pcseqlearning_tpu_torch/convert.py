@@ -6,9 +6,11 @@ the JAX modules read from the environment at import time:
 
   PCSEQ_ANGLE_VELO_EXEMPT (default 0.05)  -> tracking ANGLE_VELO_EXEMPT
   PCSEQ_FINE_CANDIDATES   (default 256)   -> tracking FINE_CANDIDATES
-  PCSEQ_CELL_CAP          (default 24)    -> no counterpart: it caps the
-      cell scan of the JAX package's CPU kNN-graph CC, and the port's CC is
-      exact (whole cell runs, no cap)
+  PCSEQ_CELL_CAP          (default 48)    -> tracking CELL_CAP: the hash
+      grid's per-probe scan cap (``hash_graph.DEFAULT_CELL_CAP``), used by
+      the registration correspondences and the host and device walks'
+      member extraction. (bench.py's 24 is a different cap, that of the CPU
+      kNN-graph CC, which the port does not have.)
 
 ``config_from_jax`` copies a stage config and writes those values as
 explicit keys (a key already in the config wins), so both packages can be
@@ -29,4 +31,5 @@ def config_from_jax(cfg, env=os.environ):
     if "REGISTRATION" in out:  # the tracking stage
         out.setdefault("ANGLE_VELO_EXEMPT", float(env.get("PCSEQ_ANGLE_VELO_EXEMPT", 0.05)))
         out.setdefault("FINE_CANDIDATES", int(env.get("PCSEQ_FINE_CANDIDATES", 256)))
+        out.setdefault("CELL_CAP", int(env.get("PCSEQ_CELL_CAP", 48)))
     return out

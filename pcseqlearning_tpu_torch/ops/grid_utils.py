@@ -1,5 +1,6 @@
 """Voxel-grid utilities (counterpart of pcseqlearning_tpu.ops.grid_utils):
-lexicographic multi-key unique and per-voxel mean grid sampling."""
+lexicographic multi-key unique, per-voxel mean grid sampling and the
+one-point-per-voxel subsample."""
 
 from __future__ import annotations
 
@@ -54,3 +55,14 @@ def grid_sample_mean(points_bxyz, voxel_size):
         "inverse": inverse,
         "num_voxels": num_voxels,
     }
+
+
+def grid_subsample_indices(points_bxyz, voxel_size):
+    """One representative point per voxel, the voxel's largest row index.
+
+    Returns (rep [N] int64: rep[v] the chosen row of voxel v, -1 past the
+    last voxel; valid [N] = rep >= 0; inverse [N]; num_voxels int)."""
+    n = points_bxyz.shape[0]
+    inverse, num_voxels, _ = unique_rows(voxel_coords(points_bxyz, voxel_size))
+    rep = segment_ops.segment_max_or(torch.arange(n, device=points_bxyz.device), inverse, n, -1)
+    return rep, rep >= 0, inverse, num_voxels

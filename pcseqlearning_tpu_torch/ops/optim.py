@@ -1,9 +1,12 @@
-"""The AdamW step of ``optax.adamw`` with its defaults, written out.
+"""The Adam and AdamW steps of ``optax.adam`` / ``optax.adamw`` with their
+defaults, written out.
 
-The JAX package runs two optimizer loops (the ground height field and the
-tracking velocity smoothing) with ``optax.adamw`` inside ``lax.while_loop``.
-The port keeps optax's exact update order: moments, bias correction
-``1 - b**t`` in float32, ``m_hat / (sqrt(v_hat + eps_root) + eps)``, then
+The JAX package runs three optimizer loops: the ground height field and the
+tracking velocity smoothing with ``optax.adamw`` inside ``lax.while_loop``,
+and the GD registration solver with ``optax.adam`` (constant rate, no weight
+decay) inside ``lax.fori_loop``. The port keeps optax's exact update order:
+moments, bias correction ``1 - b**t`` in float32,
+``m_hat / (sqrt(v_hat + eps_root) + eps)``, then (AdamW only)
 ``+ weight_decay * params``, then ``* -lr(count)`` with the schedule read at
 the pre-increment count. It also keeps JAX's gradient of ``|x|``, which is
 +1 at 0 (``sign`` would give 0), so the losses' gradients are written by
@@ -35,6 +38,8 @@ def multistep_lr(lr, step, decay_steps):
 class AdamW:
     """State of one optax.adamw(learning_rate=schedule) instance."""
 
+    weight_decay = WEIGHT_DECAY
+
     def __init__(self, params):
         self.mu = torch.zeros_like(params)
         self.nu = torch.zeros_like(params)
@@ -49,5 +54,13 @@ class AdamW:
         bc1 = float(np.float32(1.0) - np.float32(B1) ** c)
         bc2 = float(np.float32(1.0) - np.float32(B2) ** c)
         upd = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + EPS)
-        upd = upd + WEIGHT_DECAY * params
+        if self.weight_decay:
+            upd = upd + self.weight_decay * params
         return params + float(np.float32(-lr)) * upd
+
+
+class Adam(AdamW):
+    """State of one optax.adam(learning_rate) instance: AdamW's step
+    without the weight decay."""
+
+    weight_decay = 0.0

@@ -4,7 +4,8 @@
 90k-points-per-frame benchmark scene); ``PARITY`` those of
 ``tools/parity_harness.run`` (the 12-frame, 20k-points-per-frame golden
 scene). ``parity_stats`` computes the golden table's stats the way the
-parity harness does.
+parity harness does; ``walk_summary`` and ``walk_drift`` the per-walk
+record and host-walk comparison of ``tools/walk_parity.py``.
 """
 
 from __future__ import annotations
@@ -143,3 +144,41 @@ def box_miou(d):
     mov = np.asarray(sb.moving, bool)
     return (float(iou.mean()), float(iou[mov].mean()) if mov.any() else None,
             float(iou[~mov].mean()) if (~mov).any() else None)
+
+
+def walk_summary(seq_boxes, wall_s):
+    """One walk's record in tools/walk_parity.py's fields."""
+    iou = np.asarray(seq_boxes.best_iou)
+    mov = np.asarray(seq_boxes.moving, bool)
+    return dict(wall_s=wall_s, box_miou=float(iou.mean()),
+                coverage_0p7=float((iou > 0.7).mean()),
+                moving_miou=float(iou[mov].mean()) if mov.any() else None,
+                static_miou=float(iou[~mov].mean()) if (~mov).any() else None)
+
+
+def walk_drift(iou_host, iou_walk):
+    """Per-box best IoU of a walk against the host walk's on the same
+    proposals (tools/walk_parity.py's record, its "batched" the walk), and
+    the drift bounds of tests/test_walk_parity.py that it breaks: coverage
+    within 0.1 below the host's, mean IoU within 0.08, and more than 90% of
+    the boxes the host walk nails (IoU > 0.8) found (> 0.3). Returns
+    (record, list of messages)."""
+    iou_host, iou_walk = np.asarray(iou_host), np.asarray(iou_walk)
+    delta = iou_walk - iou_host
+    nailed = iou_host > 0.8
+    found = float((iou_walk[nailed] > 0.3).mean()) if nailed.any() else None
+    rec = dict(iou_delta_mean=float(delta.mean()),
+               iou_delta_p10=float(np.percentile(delta, 10)),
+               iou_delta_p90=float(np.percentile(delta, 90)),
+               host_nailed_batched_found=found,
+               batched_only=int(((iou_walk > 0.7) & (iou_host <= 0.7)).sum()),
+               host_only=int(((iou_host > 0.7) & (iou_walk <= 0.7)).sum()),
+               num_boxes=int(len(iou_host)))
+    errs = []
+    if (iou_walk > 0.7).mean() < (iou_host > 0.7).mean() - 0.1:
+        errs.append("coverage more than 0.1 below the host walk's")
+    if iou_walk.mean() < iou_host.mean() - 0.08:
+        errs.append(f"mean IoU {iou_walk.mean():.4f} < host {iou_host.mean():.4f} - 0.08")
+    if found is not None and found <= 0.9:
+        errs.append(f"found {found:.4f} of the boxes the host walk nails (needs > 0.9)")
+    return rec, errs

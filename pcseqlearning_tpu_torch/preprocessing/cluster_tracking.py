@@ -1,12 +1,28 @@
-"""Cluster tracking in batched-walk mode (counterpart of
-pcseqlearning_tpu.preprocessing.cluster_tracking with WALK_MODE="batched").
+"""Cluster tracking (counterpart of
+pcseqlearning_tpu.preprocessing.cluster_tracking).
 
 For every TRACK_INTERVAL-th frame, every proposed component is tracked
-+-TRACK_INTERVAL frames through the component-tiled ICP walk
-(``tracking_batched``). Member points are then re-claimed from the
-full-resolution above-ground cloud by one sorted-grid nearest-neighbour
-scan per tracked window (the ``radius_scan`` kernel, k=1, radius
-NN_GRAPH.RADIUS * 1.732, z-band filtered) and scored against the GT boxes.
++-TRACK_INTERVAL frames by one of three walks, chosen as the JAX module
+chooses them:
+
+  * ``WALK_MODE="batched"`` (default): the component-tiled ICP walk
+    (``tracking_batched``, the ``pair_min`` kernel);
+  * ``WALK_MODE="host"`` or ``DEVICE_WALK=False``: the reference-shaped
+    walk (``track_frame_host``), one registration pyramid per frame step
+    over grid-subsampled whole frames (``registration``), nearest-neighbour
+    member extraction through the hash grid; its per-component [C]/[C, F]
+    bookkeeping is host NumPy, its point-scale work runs on the device;
+  * ``WALK_MODE`` in ("stepped", "full", "device"): the [W, N]-window walk
+    (``tracking_device``), unless bucket_size(n) * bucket_size(C, 64) of the
+    anchor frame exceeds STEP_COMPILE_BUDGET (default 2^21), which takes the
+    host walk.
+
+``REGISTRATION.SOLVER`` "GD" / "GDSolver" makes the host walk register with
+the gradient-descent solver (``solver_utils``) instead of ICP. Member points
+are then re-claimed from the full-resolution above-ground cloud by one
+sorted-grid nearest-neighbour scan per tracked window (the ``radius_scan``
+kernel, k=1, radius NN_GRAPH.RADIUS * 1.732, z-band filtered) and scored
+against the GT boxes.
 
 The per-sequence tables (per-frame point tables, stationary flags, box
 assignment of the full cloud) are built once on the device; the per-window
@@ -20,15 +36,20 @@ import torch
 
 from ..device import resolve_device
 from ..ops import boxes as box_ops
-from ..ops import segment_ops
+from ..ops import geometry, hash_graph, segment_ops
 from ..ops.sorted_grid import radius_neighbors_sorted
 from ..utils import telemetry
 from ..utils.edict import EDict
 from ..utils.frame_index import FrameIndex
 from ..utils.padding import bucket_size
 from .cluster_proposal import frame_table
+from .registration import _zero_frame, register_to_next_frame
+from .solver_utils import gd_register_components
 from .tracking_batched import (pack_components_device, track_window_batched_dispatch,
                                track_window_batched_drain)
+from .tracking_device import _sample_frame_kernel, _smooth_velos, track_window_stepped
+
+WALKS = ("host", "device", "batched")
 
 
 def comp_stats(xyz, comp, C):
@@ -77,24 +98,86 @@ def window_claim(refs, ref_comp, q, qv, radius, F, X, Y):
     return torch.where(ok, ref_comp[i0], torch.full_like(ref_comp[i0], -1))
 
 
+def _component_stats(xyz, comp, valid, num_components):
+    """Per-component point count, center and diameter (2x the largest
+    distance to the center) of the valid rows with a component."""
+    C = num_components
+    ok = valid & (comp >= 0)
+    cs = torch.where(ok, comp.long(), torch.full_like(comp, C, dtype=torch.int64))
+    deg = segment_ops.segment_count(cs, C + 1)[:C]
+    center = segment_ops.segment_mean(xyz, cs, C + 1)[:C]
+    d = torch.linalg.vector_norm(xyz - center[torch.clamp(cs, 0, C - 1)], dim=-1)
+    d = torch.where(ok, d, torch.full_like(d, -float("inf")))
+    diam = segment_ops.segment_max_or(d, cs, C + 1, 0.0)[:C]
+    return deg, center, torch.clamp(diam, min=0.0) * 2.0
+
+
+def _nn_match(ref_xyz, ref_valid, query_xyz, query_valid, radius,
+              cell_cap=hash_graph.DEFAULT_CELL_CAP):
+    """Nearest reference within ``radius`` of each query through the hash
+    grid: (idx [M], ok [M])."""
+    grid = hash_graph.build_hash_grid(_zero_frame(ref_xyz), radius, ref_valid)
+    idx, _, mask = hash_graph.radius_neighbors(grid, _zero_frame(query_xyz), radius, 1,
+                                               query_valid=query_valid, cell_cap=cell_cap)
+    return idx[:, 0], mask[:, 0]
+
+
+def dist_compensate(comp_deg):
+    """Registration-error slack for small components."""
+    thresholds = [0, 10, 40, 100, 200, 400, 10 ** 7]
+    comp_dist = [1.0, 0.5, 0.3, 0.2, 0.1, 0.0]
+    out = np.zeros_like(comp_deg, dtype=np.float32)
+    for i in range(1, len(thresholds)):
+        m = (comp_deg >= thresholds[i - 1]) & (comp_deg < thresholds[i])
+        out[m] = comp_dist[i - 1]
+    return out
+
+
+def _pad(x, cap, fill):
+    """Pad axis 0 of a device tensor to ``cap`` rows: (padded, valid)."""
+    n = x.shape[0]
+    out = torch.full((cap,) + tuple(x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+    out[:n] = x
+    valid = torch.zeros(cap, dtype=torch.bool, device=x.device)
+    valid[:n] = True
+    return out, valid
+
+
+def _anchor_components(frame, C):
+    """Per-component count, diameter and initial validity of the anchor
+    frame (host NumPy, [C] bucketed)."""
+    deg = np.bincount(frame.component, minlength=C).astype(np.float32)[:C]
+    ctr = np.zeros((C, 3), np.float32)
+    for d in range(3):
+        ctr[:, d] = np.bincount(frame.component, weights=frame.xyz[:, d], minlength=C)[:C]
+    ctr[deg > 0] /= deg[deg > 0, None]
+    rr = np.linalg.norm(frame.xyz - ctr[frame.component], axis=-1)
+    diam = np.zeros(C, np.float32)
+    np.maximum.at(diam, frame.component, rr)
+    diam *= 2
+    return deg, diam, (deg > 0.5) & (diam < 12.5)
+
+
 class ClusterTracking:
-    """Config keys as in the JAX module. Extra port keys (``convert.
-    config_from_jax`` fills them from the JAX side's import-time
-    environment): ANGLE_VELO_EXEMPT (default 0.05) and FINE_CANDIDATES
-    (default 256). Only WALK_MODE="batched" is ported; DIR is not."""
+    """Config keys as in the JAX module (WALK_MODE, DEVICE_WALK,
+    STEP_COMPILE_BUDGET, REGISTRATION.SOLVER among them). Extra port keys,
+    which ``convert.config_from_jax`` fills from the JAX side's import-time
+    environment: ANGLE_VELO_EXEMPT (default 0.05), FINE_CANDIDATES (default
+    256) and CELL_CAP (default 48, the hash grid's per-probe scan cap). DIR
+    is not ported. ``walk_frames`` counts, per call, the tracked frames each
+    walk handled."""
 
     def __init__(self, model_cfg, runtime_cfg=None, device="cuda"):
         self.model_cfg = EDict(model_cfg)
         cfg = self.model_cfg
         if "DIR" in cfg:
             raise ValueError("ClusterTracking: DIR is not supported by the port")
-        if str(cfg.get("WALK_MODE", "batched")) != "batched" or not cfg.get("DEVICE_WALK", True):
-            raise ValueError("ClusterTracking: the port has only WALK_MODE='batched'")
         self.device = resolve_device(device)
         reg_cfg = cfg["REGISTRATION"]
         self.stopping_delta = [float(s) for s in reg_cfg["STOPPING_DELTA"]]
         self.radius_list = [float(r) for r in reg_cfg["GRAPH"]["RADIUS"]]
         self.voxel_size_list = [list(map(float, v)) for v in reg_cfg["VOXEL_SIZE"]]
+        self.gd_solver = str(reg_cfg.get("SOLVER", "ICP")) in ("GD", "GDSolver")
         self.angle_regularizer = float(cfg.get("ANGLE_REGULARIZER", 10))
         self.nn_radius = float(cfg["NN_GRAPH"]["RADIUS"])
         params = cfg.get("TRACKING_PARAMS", {})
@@ -104,10 +187,39 @@ class ClusterTracking:
         self.min_move_frame = int(params.get("MIN_MOVE_FRAME", 6))
         self.component_keys = list(cfg["COMPONENT_KEYS"])
         self.max_icp_iter = int(cfg.get("MAX_ICP_ITER", 80))
+        self.device_walk = bool(cfg.get("DEVICE_WALK", True))
         self.angle_velo_exempt = float(cfg.get("ANGLE_VELO_EXEMPT", 0.05))
         self.fine_candidates = int(cfg.get("FINE_CANDIDATES", 256))
+        self.cell_cap = int(cfg.get("CELL_CAP", hash_graph.DEFAULT_CELL_CAP))
+        self.walk_frames = dict.fromkeys(WALKS, 0)
 
     # ------------------------------------------------------------------
+    def _levels(self):
+        return tuple(
+            (float(v[0]), float(v[1]), float(v[2]), float(r), float(sd))
+            for v, r, sd in zip(self.voxel_size_list, self.radius_list, self.stopping_delta))
+
+    def track_frame(self, seq_points, frame, seq_boxes, seq_index):
+        """Walk-mode dispatch: the JAX module's rule, counted in
+        ``walk_frames``."""
+        mode = str(self.model_cfg.get("WALK_MODE", "batched"))
+        if not self.device_walk or mode == "host":
+            walk = "host"
+        elif mode in ("stepped", "full", "device"):
+            num_components = int(frame.component.max()) + 1 if len(frame.component) else 0
+            n_cap = bucket_size(max(len(frame.xyz), 1))
+            c_cap = bucket_size(max(num_components, 1), base=64)
+            budget = int(self.model_cfg.get("STEP_COMPILE_BUDGET", 1 << 21))
+            walk = "host" if n_cap * c_cap > budget else "device"
+        else:
+            walk = "batched"
+        self.walk_frames[walk] += 1
+        if walk == "host":
+            return self.track_frame_host(seq_points, frame, seq_boxes, seq_index)
+        if walk == "device":
+            return self.track_frame_device(seq_points, frame, seq_boxes, seq_index)
+        return self.track_frame_batched(seq_points, frame, seq_boxes, seq_index)
+
     def track_frame_batched(self, seq_points, frame, seq_boxes, seq_index):
         """Walk dispatch + finish for one tracked frame."""
         h = self.track_frame_batched_dispatch(seq_points, frame, seq_boxes, seq_index)
@@ -138,16 +250,7 @@ class ClusterTracking:
         window_stat = self._stat_tab[sel] & window_valid
 
         C = bucket_size(num_components, base=64)
-        deg = np.bincount(frame.component, minlength=C).astype(np.float32)[:C]
-        ctr = np.zeros((C, 3), np.float32)
-        for d in range(3):
-            ctr[:, d] = np.bincount(frame.component, weights=frame.xyz[:, d], minlength=C)[:C]
-        ctr[deg > 0] /= deg[deg > 0, None]
-        rr = np.linalg.norm(frame.xyz - ctr[frame.component], axis=-1)
-        diam = np.zeros(C, np.float32)
-        np.maximum.at(diam, frame.component, rr)
-        diam *= 2
-        comp_valid0 = (deg > 0.5) & (diam < 12.5)
+        deg, diam, comp_valid0 = _anchor_components(frame, C)
 
         cfg = self.model_cfg
         P = int(cfg.get("TRACK_POINTS_PER_COMPONENT", 256))
@@ -160,9 +263,7 @@ class ClusterTracking:
         comp_xyz, comp_pmask = pack_components_device(
             a_xyz, comp_d, a_valid & ~window_stat[anchor], C, P)
         comp_ext, ext_mask = pack_components_device(a_xyz, comp_d, a_valid, C, P_ext)
-        levels = tuple(
-            (float(v[0]), float(v[1]), float(v[2]), float(r), float(sd))
-            for v, r, sd in zip(self.voxel_size_list, self.radius_list, self.stopping_delta))
+        levels = self._levels()
         g = track_window_batched_dispatch(
             window_xyz, window_valid, window_stat, comp_xyz, comp_pmask,
             torch.as_tensor(comp_valid0, device=dev), torch.as_tensor(diam, device=dev),
@@ -219,6 +320,302 @@ class ClusterTracking:
         extracted.transforms = out["transforms"][:num_components]
         extracted.reg_errors = out["reg_errors"][:num_components]
         extracted.comp_edge_ratios = out["edge_ratios"][:num_components]
+        return extracted
+
+    # ------------------------------------------------------------------
+    def track_frame_device(self, seq_points, frame, seq_boxes, seq_index):
+        """The [W, N]-window walk (``tracking_device``): the window sliced
+        from the resident per-frame table at the window's own row capacity,
+        the outputs assembled into the host walk's extracted-points format."""
+        num_components = int(frame.component.max()) + 1 if len(frame.component) else 0
+        if num_components == 0:
+            return None
+        dev = self.device
+        frame_id = int(frame.frame[0])
+        iv = self.track_interval
+        W = 2 * iv + 1
+        frame_rows = [seq_index.rows(frame_id - iv + w) for w in range(W)]
+        na = len(frame.xyz)
+        n_cap = bucket_size(max([na] + [len(r) for r in frame_rows]))
+        tab, tval, _ = self._seq_tab
+        F_all = tab.shape[0]
+        fids = np.arange(frame_id - iv, frame_id + iv + 1)
+        in_rng = torch.as_tensor((fids >= 0) & (fids < F_all), device=dev)
+        sel = torch.as_tensor(np.clip(fids, 0, F_all - 1), device=dev)
+        window_valid = tval[sel][:, :n_cap] & in_rng[:, None]
+        window_xyz = torch.where(window_valid[..., None], tab[sel][:, :n_cap, 1:4],
+                                 torch.full((), 1e8, device=dev))
+        anchor_comp = np.full(n_cap, -1, np.int64)
+        anchor_comp[:na] = frame.component
+        anchor_stat = np.zeros(n_cap, bool)
+        anchor_stat[:na] = frame.stationary
+        C = bucket_size(num_components, base=64)
+        deg, diam, comp_valid0 = _anchor_components(frame, C)
+        out = track_window_stepped(
+            window_xyz, window_valid, torch.as_tensor(anchor_comp, device=dev),
+            torch.as_tensor(anchor_stat, device=dev), torch.as_tensor(comp_valid0, device=dev),
+            torch.as_tensor(diam, device=dev), torch.as_tensor(deg, device=dev),
+            num_components=C, interval=iv, levels=self._levels(), nn_radius=self.nn_radius,
+            angle_regularizer=self.angle_regularizer, reg_error_coeff=self.reg_error_coeff,
+            angle_threshold_deg=self.angle_threshold, min_move_frame=self.min_move_frame,
+            max_icp_iter=self.max_icp_iter, angle_velo_exempt=self.angle_velo_exempt,
+            cell_cap=self.cell_cap)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        valid_final = out["valid_final"][:num_components]
+        moving = out["moving"][:num_components]
+
+        keep = valid_final[frame.component]
+        ex_xyzf = [np.concatenate([np.full((keep.sum(), 1), frame_id, np.float32),
+                                   frame.xyz[keep]], axis=1)]
+        ex_comp = [frame.component[keep]]
+        ex_seg = [frame.segmentation_label[keep]]
+        ex_orig = [frame.original_indices[keep]]
+        for w, rows in enumerate(frame_rows):
+            if w == iv or len(rows) == 0:
+                continue
+            src = out["extract_src"][w, :len(rows)]
+            ok = src >= 0
+            if not ok.any():
+                continue
+            comp = anchor_comp[np.clip(src, 0, n_cap - 1)]
+            ok &= (comp >= 0) & valid_final[np.clip(comp, 0, num_components - 1)]
+            sel_w = np.nonzero(ok)[0]
+            ex_xyzf.append(np.concatenate([
+                np.full((len(sel_w), 1), frame_id - iv + w, np.float32),
+                seq_points.xyz[rows[sel_w]]], axis=1))
+            ex_comp.append(comp[sel_w])
+            ex_seg.append(seq_points.segmentation_label[rows[sel_w]])
+            ex_orig.append(rows[sel_w])
+        extracted = EDict(
+            fxyz=np.concatenate(ex_xyzf, axis=0),
+            component=np.concatenate(ex_comp, axis=0),
+            segmentation_label=np.concatenate(ex_seg, axis=0),
+            original_indices=np.concatenate(ex_orig, axis=0),
+        )
+        extracted.moving = (moving[extracted.component] if len(extracted.component)
+                            else np.zeros(0, bool))
+        extracted.transforms = out["transforms"][:num_components]
+        extracted.reg_errors = out["reg_errors"][:num_components]
+        extracted.comp_edge_ratios = out["edge_ratios"][:num_components]
+        return extracted
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _sample_frame(xyz, comp, stationary, voxel_size):
+        """Voxel subsample of one frame's device rows: (mean xyz [V, 3],
+        median component [V], stationary [V]) over its V occupied voxels in
+        lexicographic voxel order."""
+        n = xyz.shape[0]
+        mean, med_comp, stat, occ = _sample_frame_kernel(
+            _zero_frame(xyz), comp, stationary, torch.ones(n, dtype=torch.bool, device=xyz.device),
+            voxel_size)
+        return mean[occ][:, 1:4], med_comp[occ], stat[occ]
+
+    def _register_level(self, cur_xyz, cur_comp, cur_stat, nxt_xyz, nxt_stat, num_components,
+                        level):
+        """One pyramid level of the host walk: subsample both frames, drop
+        stationary voxels, pad to the bucket ladder, register by ICP or the
+        GD solver. Returns (T [nc, 4, 4] on the device, and T, l1, ratio [nc]
+        as host arrays)."""
+        vs = self.voxel_size_list[level]
+        mx, mc, m_stat = self._sample_frame(cur_xyz, cur_comp, cur_stat, vs)
+        rx, _, r_stat = self._sample_frame(
+            nxt_xyz, torch.zeros(nxt_xyz.shape[0], dtype=torch.int64, device=nxt_xyz.device),
+            nxt_stat, vs)
+        m_keep = ~m_stat & (mc >= 0)
+        mx, mc, rx = mx[m_keep], mc[m_keep], rx[~r_stat]
+        mx_p, m_valid = _pad(mx, bucket_size(max(mx.shape[0], 1)), 1e8)
+        mc_p, _ = _pad(mc, mx_p.shape[0], -1)
+        rx_p, r_valid = _pad(rx, bucket_size(max(rx.shape[0], 1)), 1e8)
+        C = bucket_size(num_components, base=64)
+        radius = self.radius_list[level]
+        if self.gd_solver:
+            T, l1, ratio = gd_register_components(mx_p, mc_p, m_valid, rx_p, r_valid, C, radius)
+        else:
+            T, l1, ratio, _ = register_to_next_frame(
+                mx_p, mc_p, m_valid, rx_p, r_valid, C, radius,
+                angle_regularizer=self.angle_regularizer, max_iter=self.max_icp_iter,
+                stopping_delta=self.stopping_delta[level], cell_cap=self.cell_cap)
+        T = T[:num_components]
+        return (T, T.cpu().numpy(), l1[:num_components].cpu().numpy(),
+                ratio[:num_components].cpu().numpy())
+
+    def track_frame_host(self, seq_points, frame, seq_boxes, seq_index):
+        """The reference-shaped walk: frame by frame in each direction, the
+        registration pyramid over whole subsampled frames, velocity
+        smoothing, the stopping rules and nearest-neighbour extraction of the
+        step frame's member points."""
+        num_components = nc = int(frame.component.max()) + 1 if len(frame.component) else 0
+        if num_components == 0:
+            return None
+        dev = self.device
+        frame_id = int(frame.frame[0])
+        frames_arr = seq_points.frame
+        min_frame_id = max(int(frames_arr.min()), frame_id - self.track_interval)
+        max_frame_id = min(int(frames_arr.max()), frame_id + self.track_interval)
+        W = max_frame_id - min_frame_id + 1
+        tab, _, _ = self._seq_tab
+        xyz0 = torch.as_tensor(frame.xyz, dtype=torch.float32, device=dev)
+        comp_d = torch.as_tensor(frame.component, device=dev)
+        stat0 = torch.as_tensor(frame.stationary, device=dev)
+        deg, center0, comp_diameter = (x.cpu().numpy()[:nc] for x in _component_stats(
+            xyz0, comp_d, torch.ones(len(frame.component), dtype=torch.bool, device=dev),
+            bucket_size(nc, base=64)))
+        comp_deg = deg
+
+        transforms = np.tile(np.eye(4, dtype=np.float64), (nc, W, 1, 1))
+        F = max_frame_id + 1
+        reg_errors = np.zeros((nc, F), np.float32)
+        comp_edge_ratios = np.zeros((nc, F), np.float32)
+        comp_min_frame_id = np.full(nc, frame_id)
+        comp_max_frame_id = np.full(nc, frame_id)
+        comp_velos = np.zeros((nc, F, 3), np.float32)
+        comp_centers = np.zeros((nc, F, 3), np.float32)
+        comp_centers[:, frame_id] = center0
+        comp_center_diffs = np.zeros((nc, F, 3), np.float32)
+        cnts = np.bincount(frame.component, minlength=nc).astype(np.float32)
+
+        def comp_mean(x):
+            """Per-component mean of device rows x (float64 sums, as
+            np.bincount forms them), host [nc, 3] float32."""
+            out = segment_ops.segment_sum(x.double(), comp_d, nc).cpu().numpy().astype(np.float32)
+            out[cnts > 0] /= cnts[cnts > 0, None]
+            return out
+
+        # filter out huge / empty components
+        valid_comp_mask = (deg > 0.5) & (comp_diameter < 12.5)
+        vpm = valid_comp_mask[frame.component]
+        ex_xyzf = [np.concatenate([np.full((vpm.sum(), 1), frame_id, np.float32),
+                                   frame.xyz[vpm]], axis=1)]
+        ex_component = [frame.component[vpm]]
+        ex_seglabel = [frame.segmentation_label[vpm]]
+        ex_orig_idx = [frame.original_indices[vpm]]
+        moving_total = np.ones(nc, bool)
+
+        for track_dir in (-1, 1):
+            next_frame_id = frame_id + track_dir
+            stopped = ~valid_comp_mask.copy()
+            moving = valid_comp_mask.copy()
+            cur_xyz = last_xyz = xyz0
+            last_velo = None
+            if track_dir == 1 and frame_id > 0:
+                last_velo = comp_velos[:, frame_id].copy()
+
+            while min_frame_id <= next_frame_id <= max_frame_id and (~stopped).any():
+                rows = seq_index.rows(next_frame_id)
+                if not len(rows):
+                    break
+                nxt_xyz = tab[next_frame_id, :len(rows), 1:4]
+                nxt_stat = self._stat_tab[next_frame_id, :len(rows)]
+                w = next_frame_id - min_frame_id
+                transforms[:, w] = transforms[:, w - track_dir]
+                if last_velo is not None:
+                    trans = last_velo.copy()
+                    trans[stopped] = 0
+                    cur_xyz = cur_xyz + torch.as_tensor(trans, device=dev)[comp_d] * track_dir
+                    transforms[:, w, :3, 3] += trans.astype(np.float64) * track_dir
+
+                l1_reg_error = np.zeros(nc, np.float32)
+                comp_edge_ratio = np.zeros(nc, np.float32)
+                for lvl in range(len(self.radius_list)):
+                    T_d, T, l1, ratio = self._register_level(cur_xyz, comp_d, stat0, nxt_xyz,
+                                                             nxt_stat, nc, lvl)
+                    if lvl == 0:
+                        comp_edge_ratio = ratio
+                    if lvl == len(self.radius_list) - 1:
+                        l1_reg_error = l1
+                    cur_xyz = geometry.mv(T_d[comp_d, :3, :3], cur_xyz) + T_d[comp_d, :3, 3]
+                    transforms[:, w] = T.astype(np.float64) @ transforms[:, w]
+
+                comp_centers[:, next_frame_id] = comp_mean(cur_xyz)
+                # velocity estimate + smoothing
+                comp_velo = comp_mean((cur_xyz - last_xyz) * track_dir)
+                comp_velo[:, 2] = 0
+                comp_velos[:, next_frame_id] = comp_velo
+                comp_center_diffs[:, next_frame_id] = (
+                    comp_centers[:, next_frame_id] - comp_centers[:, next_frame_id - track_dir]
+                ) * track_dir
+                lo, hi = sorted((frame_id + track_dir, next_frame_id))
+                span = np.zeros(F, bool)
+                span[lo:hi + 1] = True
+                comp_velos = _smooth_velos(
+                    torch.as_tensor(comp_velos, device=dev),
+                    torch.as_tensor(comp_center_diffs, device=dev),
+                    torch.as_tensor(span, device=dev)).cpu().numpy().copy()
+                delta_velo = comp_velos[:, next_frame_id] - comp_velo
+                comp_velo = comp_velos[:, next_frame_id]
+                cur_xyz = cur_xyz + torch.as_tensor(delta_velo, device=dev)[comp_d] * track_dir
+                transforms[:, w, :3, 3] += delta_velo.astype(np.float64) * track_dir
+                last_xyz = cur_xyz
+
+                # stopping rules
+                stopped = stopped | (l1_reg_error > self.reg_error_coeff * comp_diameter
+                                     * (1 + dist_compensate(comp_deg)))
+                stopped = stopped | (comp_edge_ratio < 0.5)
+                if (next_frame_id - frame_id) * track_dir == self.min_move_frame:
+                    moved = np.linalg.norm(comp_centers[:, next_frame_id]
+                                           - comp_centers[:, frame_id], axis=-1)
+                    moving = moving & (moved > 0.08 * comp_diameter)
+                if last_velo is not None:
+                    dev_v = np.linalg.norm(comp_velo - last_velo, axis=-1)
+                    stopped = stopped | (dev_v > 0.24 * comp_diameter)
+                    prev = comp_velos[:, next_frame_id - track_dir]
+                    norm = np.maximum(np.linalg.norm(comp_velo, axis=-1)
+                                      * np.linalg.norm(prev, axis=-1), 1e-6)
+                    ang = np.degrees(np.arccos(np.clip((comp_velo * prev).sum(-1) / norm, -1, 1)))
+                    stopped = stopped | (
+                        (ang > self.angle_threshold)
+                        & (np.linalg.norm(comp_velos[:, next_frame_id, :2], axis=-1)
+                           > self.angle_velo_exempt))
+                last_velo = comp_velo
+                if next_frame_id == frame_id - 1:
+                    comp_velos[:, frame_id] = comp_velo
+                if track_dir == -1:
+                    comp_min_frame_id[~stopped] = next_frame_id
+                else:
+                    comp_max_frame_id[~stopped] = next_frame_id
+
+                # nearest-neighbour extraction of the step frame's member points
+                rx, r_valid = _pad(cur_xyz, bucket_size(cur_xyz.shape[0]), 1e8)
+                qx, q_valid = _pad(nxt_xyz, bucket_size(len(rows)), 1e8)
+                nn_idx, nn_ok = _nn_match(rx, r_valid, qx, q_valid, self.nn_radius,
+                                          cell_cap=self.cell_cap)
+                nn_idx, nn_ok = nn_idx[:len(rows)], nn_ok[:len(rows)]
+                src_comp = torch.where(nn_ok, comp_d[torch.clamp(nn_idx, 0, len(frame.xyz) - 1)],
+                                       torch.full_like(nn_idx, -1))
+                keep = (nn_ok & (src_comp >= 0)
+                        & ~torch.as_tensor(stopped, device=dev)[torch.clamp(src_comp, 0, nc - 1)])
+                keep = keep.cpu().numpy()
+                ex_xyzf.append(np.concatenate([np.full((keep.sum(), 1), next_frame_id, np.float32),
+                                               seq_points.xyz[rows[keep]]], axis=1))
+                ex_component.append(src_comp.cpu().numpy()[keep])
+                ex_seglabel.append(seq_points.segmentation_label[rows[keep]])
+                ex_orig_idx.append(rows[keep])
+
+                reg_errors[:, next_frame_id] = l1_reg_error
+                comp_edge_ratios[:, next_frame_id] = comp_edge_ratio
+                next_frame_id += track_dir
+
+            moving_total = moving_total & moving
+
+        extracted = EDict(
+            fxyz=np.concatenate(ex_xyzf, axis=0),
+            component=np.concatenate(ex_component, axis=0),
+            segmentation_label=np.concatenate(ex_seglabel, axis=0),
+            original_indices=np.concatenate(ex_orig_idx, axis=0),
+        )
+        # final validity: tracked at least min_move_frame in one direction
+        valid_comp_mask = valid_comp_mask & (
+            (comp_max_frame_id >= frame_id + self.min_move_frame)
+            | (comp_min_frame_id <= frame_id - self.min_move_frame))
+        keep = valid_comp_mask[extracted.component]
+        for k in ("fxyz", "component", "segmentation_label", "original_indices"):
+            extracted[k] = extracted[k][keep]
+        extracted.moving = (moving_total[extracted.component] if len(extracted.component)
+                            else np.zeros(0, bool))
+        extracted.transforms = transforms
+        extracted.reg_errors = reg_errors
+        extracted.comp_edge_ratios = comp_edge_ratios
         return extracted
 
     # ------------------------------------------------------------------
@@ -370,7 +767,11 @@ class ClusterTracking:
             moving=np.asarray(seq_dict["moving"]).reshape(-1),
         )
 
-    def __call__(self, seq_dict):
+    def _load_sequence(self, seq_dict):
+        """Host point tables of the sequence and its resident device tables
+        (per-frame tables of the tracked and of the full-resolution
+        above-ground points). Returns (seq_points, all_points, seq_dev,
+        seq_index)."""
         dev = self.device
         fxyz = np.asarray(seq_dict["point_fxyz"])
         frame = np.asarray(seq_dict["point_sweep"]).reshape(-1).astype(int, copy=False)
@@ -398,7 +799,6 @@ class ClusterTracking:
             )
         else:
             all_points = seq_points
-        num_frames = int(frame.max()) + 1 if n else 0
         seq_index = FrameIndex(frame)
         self._ap_index = FrameIndex(all_points.frame)
         seq_dev = torch.as_tensor(fxyz, dtype=torch.float32, device=dev)
@@ -406,6 +806,42 @@ class ClusterTracking:
         ap_fxyz = np.concatenate([all_points.frame[:, None].astype(np.float32),
                                   all_points.xyz], axis=1)
         self._full_tab = frame_table(torch.as_tensor(ap_fxyz, device=dev), all_points.frame)
+        return seq_points, all_points, seq_dev, seq_index
+
+    def _set_components(self, seq_points, seq_dev, component):
+        """Attach one component key's ids to the sequence, with the
+        stationary flags (components over 12.5 m across) and their
+        per-frame device table."""
+        dev = self.device
+        n = len(component)
+        C_all = int(component.max()) + 1 if n else 0
+        cc_diam = np.zeros(C_all, np.float32)
+        if C_all:
+            _, _, diam = comp_stats(seq_dev[:, 1:4], torch.as_tensor(component, device=dev), C_all)
+            cc_diam = diam.cpu().numpy()
+        seq_points.component = component
+        seq_points.stationary = cc_diam[component] > 12.5 if C_all else np.zeros(n, bool)
+        stab, _, _ = frame_table(torch.as_tensor(seq_points.stationary, device=dev)[:, None]
+                                 .to(torch.float32), seq_points.frame, p_cap=self._seq_tab[2])
+        self._stat_tab = (stab[..., 0] == 1.0)
+
+    @staticmethod
+    def _anchor_frame(seq_points, seq_index, frame_id):
+        """The tracked frame's points with its components renumbered from 0,
+        or None for an empty frame."""
+        fm = seq_index.rows(frame_id)
+        if not len(fm):
+            return None
+        comp = seq_points.component[fm]
+        return EDict(xyz=seq_points.xyz[fm], frame=seq_points.frame[fm],
+                     component=comp - comp.min(), stationary=seq_points.stationary[fm],
+                     segmentation_label=seq_points.segmentation_label[fm], original_indices=fm)
+
+    def __call__(self, seq_dict):
+        self.walk_frames = dict.fromkeys(WALKS, 0)
+        seq_points, all_points, seq_dev, seq_index = self._load_sequence(seq_dict)
+        frame = seq_points.frame
+        num_frames = int(frame.max()) + 1 if len(frame) else 0
 
         seq_boxes = self.format_boxes(seq_dict)
         if seq_boxes.attr.shape[0] == 0:
@@ -414,34 +850,13 @@ class ClusterTracking:
         self._boxtab = self._box_table(seq_boxes)
 
         for comp_key in self.component_keys:
-            component = np.asarray(seq_dict[f"point_{comp_key}"]).astype(np.int64)
-            C_all = int(component.max()) + 1 if n else 0
-            cc_diam = np.zeros(C_all, np.float32)
-            if C_all:
-                _, _, diam = comp_stats(seq_dev[:, 1:4], torch.as_tensor(component, device=dev),
-                                        C_all)
-                cc_diam = diam.cpu().numpy()
-            seq_points.component = component
-            # stationary = very large components
-            seq_points.stationary = cc_diam[component] > 12.5 if C_all else np.zeros(n, bool)
-            stat_dev = torch.as_tensor(seq_points.stationary, device=dev)
-            stab, _, _ = frame_table(stat_dev[:, None].to(torch.float32), frame,
-                                     p_cap=self._seq_tab[2])
-            self._stat_tab = (stab[..., 0] == 1.0)
-
+            self._set_components(seq_points, seq_dev,
+                                 np.asarray(seq_dict[f"point_{comp_key}"]).astype(np.int64))
             for frame_id in range(0, num_frames, self.track_interval):
-                fm = seq_index.rows(frame_id)
-                if not len(fm):
+                fr = self._anchor_frame(seq_points, seq_index, frame_id)
+                if fr is None:
                     continue
-                fr = EDict(
-                    xyz=seq_points.xyz[fm],
-                    frame=frame[fm],
-                    component=component[fm] - component[fm].min(),
-                    stationary=seq_points.stationary[fm],
-                    segmentation_label=seq_points.segmentation_label[fm],
-                    original_indices=fm,
-                )
-                extracted = self.track_frame_batched(seq_points, fr, seq_boxes, seq_index)
+                extracted = self.track_frame(seq_points, fr, seq_boxes, seq_index)
                 if extracted is None or len(extracted.fxyz) == 0:
                     continue
                 self.extract_traces_and_update_boxes(all_points, extracted, seq_boxes)

@@ -1,9 +1,13 @@
-"""The synthetic benchmark scene (a copy of ``bench.make_scene``), so that the
-port's smoke run and tests need neither ``bench.py`` nor ``jax``.
+"""Synthetic scenes, so that the port's smoke run and tests need neither
+``bench.py`` nor ``jax``.
 
-A static ground surface (65% of the points, the same cells every frame)
-plus 24 rigid Gaussian clusters: even-indexed ones move at 0.15-0.8
-m/frame, the rest drift below the 0.05 m/frame moving threshold.
+``make_scene`` (a copy of ``bench.make_scene``): a static ground surface
+(65% of the points, the same cells every frame) plus 24 rigid Gaussian
+clusters: even-indexed ones move at 0.15-0.8 m/frame, the rest drift below
+the 0.05 m/frame moving threshold. ``scene_dict`` is its pipeline input
+dict and ``scene_batch`` a collated SimpleReg batch of such sequences.
+``make_rigid_scene`` (a copy of tests/test_registration_oracle.py's) is a
+two-frame registration problem with a known rigid motion per cluster.
 """
 
 from __future__ import annotations
@@ -69,3 +73,56 @@ def scene_dict(num_frames, points_per_frame, seed=0, frame_id="seq_000"):
         "frame_id": frame_id,
         **gt,
     }
+
+
+def scene_batch(num_frames, points_per_frame, seeds=(0,), name="seq"):
+    """A collated batch of ``make_scene`` sequences in SimpleReg's input
+    layout: point_bxyz [N, 4] (sequence index, x, y, z), point_sweep and
+    point_feat [N], and per sequence the boxes padded per frame,
+    gt_box_attr [B, F * 24, 7], gt_box_cls_label and obj_ids [B, F * 24],
+    frame_id [B] ("<name>_<b>.npy")."""
+    bxyz, sweep, attr, cls, obj = [], [], [], [], []
+    for b, seed in enumerate(seeds):
+        seq, gt = make_scene(num_frames=num_frames, points_per_frame=points_per_frame, seed=seed)
+        bxyz.append(np.concatenate([np.full((len(seq), 1), b, np.float32), seq[:, 1:4]], axis=1))
+        sweep.append(seq[:, 0].astype(np.int64))
+        attr.append(gt["gt_box_attr"])
+        cls.append(gt["gt_box_cls_label"])
+        obj.append(np.asarray([f"obj_{t}" for t in gt["gt_box_track_label"]]))
+    return {
+        "batch_size": len(seeds),
+        "point_bxyz": np.concatenate(bxyz),
+        "point_sweep": np.concatenate(sweep),
+        "point_feat": np.zeros((sum(len(s) for s in sweep), 1), np.float32),
+        "gt_box_attr": np.stack(attr),
+        "gt_box_cls_label": np.stack(cls),
+        "obj_ids": np.stack(obj),
+        "frame_id": [f"{name}_{b:03d}.npy" for b in range(len(seeds))],
+    }
+
+
+def make_rigid_scene(seed, C=5, per=60, rot_deg=8.0, trans=0.4):
+    """C clusters 14 m apart (far beyond any registration radius) and their
+    images under one rigid motion each (a rotation about the cluster center
+    up to ``rot_deg`` degrees, a translation up to ``trans`` m). Returns
+    (moving [C * per, 3] f32, comp [C * per] int32, ref [C * per, 3] f32,
+    gt_T [C, 4, 4] f64)."""
+    rng = np.random.RandomState(seed)
+    centers = np.stack([np.arange(C) * 14.0, (np.arange(C) % 2) * 14.0, np.zeros(C)], 1)
+    centers = centers + rng.randn(C, 3)
+    pts, comp, gt_T = [], [], []
+    for c in range(C):
+        p = centers[c] + rng.randn(per, 3) * np.array([1.2, 1.0, 0.5])
+        ang = np.deg2rad(rng.uniform(-rot_deg, rot_deg))
+        ca, sa = np.cos(ang), np.sin(ang)
+        R = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1.0]])
+        t = rng.uniform(-trans, trans, 3)
+        pts.append((p, (p - centers[c]) @ R.T + centers[c] + t))
+        comp.append(np.full(per, c))
+        M = np.eye(4)
+        M[:3, :3] = R
+        M[:3, 3] = centers[c] - R @ centers[c] + t
+        gt_T.append(M)
+    moving = np.concatenate([p for p, _ in pts]).astype(np.float32)
+    ref = np.concatenate([q for _, q in pts]).astype(np.float32)
+    return moving, np.concatenate(comp).astype(np.int32), ref, np.stack(gt_T)

@@ -1,21 +1,31 @@
-"""The CUDA kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels against their plain PyTorch versions, and the hash-grid
+neighbour search and registration on the card against the same code on
+the CPU.
 
-Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU
-mode); each is marked ``cuda`` and skips without a card. The file imports
-neither JAX nor the JAX package, so it also runs where JAX is absent:
+Every test here needs an NVIDIA GPU (and nvcc for the kernels); each is
+marked ``cuda`` and skips without a card. The file imports neither JAX nor
+the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerance: none. Each kernel rounds its distances like its plain version
-(no FMA contraction), so outputs must be equal.
+Tolerance: none for the kernels and the neighbour search. Each kernel
+rounds its distances like its plain version (no FMA contraction), and the
+search is elementwise PyTorch, so outputs must be equal. Registration on
+the card agrees with the CPU to 1e-3 after the same first iterations: its
+segment sums are atomic adds in another order, and its cross term a matrix
+product on another library.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pcseqlearning_tpu_torch.ops import hash_graph as thg
 from pcseqlearning_tpu_torch.ops import pair_min as tpm
 from pcseqlearning_tpu_torch.ops import sorted_grid as tsg
+from pcseqlearning_tpu_torch.preprocessing import registration as treg
+from pcseqlearning_tpu_torch.scene import make_rigid_scene
+from pcseqlearning_tpu_torch.utils import telemetry
 
 T = torch.as_tensor
 
@@ -221,3 +231,67 @@ def test_cuda_wrappers_reject_bad_inputs_and_skip_empty_launches(cuda_device):
                         torch.zeros((6, 1), dtype=torch.int32, device=cuda_device),
                         float("inf"), 1, torch.zeros((1, 8), dtype=torch.int32,
                                                      device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8])
+def test_cuda_radius_neighbors_matches_cpu(cuda_device, k):
+    """Two query chunks, padded queries, duplicated references (exact ties)
+    and a dense patch past the per-probe cell cap."""
+    rng = np.random.RandomState(k)
+    ref = _cloud(rng, 20000, frames=3, extent=40.0)
+    ref[:3000, 1:3] = ref[:3000, 1:3] * 0.02
+    ref[12000:14000] = ref[4000:6000]
+    q = _cloud(rng, 50000, frames=3, extent=40.0)
+    q[:2000] = ref[:2000]
+    q[2000:4000] = ref[4000:6000]
+    qv = rng.rand(len(q)) > 0.05
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        grid = thg.build_hash_grid(T(ref).to(dev), 0.5)
+        assert int(thg.cell_cap_overflow(grid)) > 0
+        outs.append([x.cpu() for x in thg.radius_neighbors(grid, T(q).to(dev), 0.5, k,
+                                                           query_valid=T(qv).to(dev))])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    if k > 1:
+        d2, mask = outs[1][1], outs[1][2]
+        assert ((d2[:, 1:] == d2[:, :-1]) & mask[:, 1:]).any()
+
+
+@pytest.fixture
+def deterministic():
+    """PyTorch's deterministic algorithms, as chip_smoke.py's phase 5 runs:
+    the card's atomic sums otherwise change from run to run."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per,path", [(60, "brute"), (4000, "hash")])
+def test_cuda_register_to_next_frame_matches_cpu(cuda_device, deterministic, per, path):
+    """The rigid scene of tests/test_registration_oracle.py: 300 points take
+    the brute-force correspondences, 20,000 the hash grid. The card equals
+    the CPU after 1, 2, 4 and 8 iterations; a full run passes near-tied
+    correspondences that last-bit differences (atomic sums, another matrix
+    product) resolve the other way, and its loss countdown can stop a few
+    iterations apart, so full runs are held to the true motion."""
+    m, c, ref, gt = make_rigid_scene(0, per=per, rot_deg=5.0, trans=0.3)
+    n = len(m)
+    args = (m, c, np.ones(n, bool), ref, np.ones(n, bool))
+
+    def run(dev, max_iter):
+        telemetry.reset()
+        out = treg.register_to_next_frame(*(T(a).to(dev) for a in args), 5, 2.0,
+                                          angle_regularizer=10.0, max_iter=max_iter,
+                                          stopping_delta=5e-2)
+        assert telemetry.snapshot()[f"registration_nn1_{path}"] > 0
+        return [x.cpu().numpy() for x in out]
+
+    gt_moved = np.einsum("nij,nj->ni", gt[c][:, :3, :3], m) + gt[c][:, :3, 3]
+    for dev in (cuda_device, torch.device("cpu")):
+        assert np.median(np.linalg.norm(run(dev, 40)[3] - gt_moved, axis=-1)) < 0.08
+    for k in (1, 2, 4, 8):
+        np.testing.assert_allclose(run(cuda_device, k)[0], run(torch.device("cpu"), k)[0],
+                                   atol=1e-3, err_msg=f"after {k} iterations")

@@ -86,16 +86,27 @@ def test_slice_matches_jax_pipeline(jax_pallas_path):
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
-    from pcseqlearning_tpu_torch.preprocessing import (ClusterProposal, ClusterTracking,
-                                                       GroundPlaneRemover)
+    from pcseqlearning_tpu_torch.preprocessing import (PREPROCESSORS, ClusterProposal,
+                                                       ClusterTracking, GroundPlaneRemover,
+                                                       SimpleReg)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cls, key in ((GroundPlaneRemover, "ground"), (ClusterProposal, "proposal"),
-                     (ClusterTracking, "tracking")):
-        cfg = config_from_jax(pipeline.BENCH[key])
+    host = dict(pipeline.BENCH["tracking"], WALK_MODE="host")
+    chain = dict(PREPROCESSORS=[dict(pipeline.BENCH[k], NAME=name) for k, name in (
+        ("ground", "GroundPlaneRemover"), ("proposal", "ClusterProposal"),
+        ("tracking", "ClusterTracking"))])
+    for cls, cfg in ((GroundPlaneRemover, pipeline.BENCH["ground"]),
+                     (ClusterProposal, pipeline.BENCH["proposal"]),
+                     (ClusterTracking, pipeline.BENCH["tracking"]), (ClusterTracking, host),
+                     (SimpleReg, chain)):
+        cfg = config_from_jax(cfg)
         with pytest.raises(RuntimeError, match="cuda"):
             cls(cfg)  # the default device is the card
         assert cls(cfg, device="cpu").device.type == "cpu"
+    reg = SimpleReg(chain, device="cpu")  # hands its device to every stage
+    assert [type(m) for m in reg.preprocessors] == [PREPROCESSORS[n] for n in (
+        "GroundPlaneRemover", "ClusterProposal", "ClusterTracking")]
+    assert all(m.device.type == "cpu" for m in reg.preprocessors)
     with pytest.raises(ValueError):
         GroundPlaneRemover(pipeline.BENCH["ground"], device="meta")
 
@@ -114,19 +125,26 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every module of the slice was imported
+    assert int(out.stdout.split()[-1]) >= 30  # every module of the port was imported
 
 
 def test_config_from_jax_carries_the_environment_defaults():
     trk = pipeline.BENCH["tracking"]
     assert config_from_jax(trk, env={}).ANGLE_VELO_EXEMPT == 0.05
     assert config_from_jax(trk, env={}).FINE_CANDIDATES == 256
+    assert config_from_jax(trk, env={}).CELL_CAP == 48  # hash_graph.DEFAULT_CELL_CAP
     c = config_from_jax(trk, env={"PCSEQ_ANGLE_VELO_EXEMPT": "0.01",
-                                  "PCSEQ_FINE_CANDIDATES": "128"})
-    assert (c.ANGLE_VELO_EXEMPT, c.FINE_CANDIDATES) == (0.01, 128)
+                                  "PCSEQ_FINE_CANDIDATES": "128", "PCSEQ_CELL_CAP": "96"})
+    assert (c.ANGLE_VELO_EXEMPT, c.FINE_CANDIDATES, c.CELL_CAP) == (0.01, 128, 96)
     assert "ANGLE_VELO_EXEMPT" not in config_from_jax(pipeline.BENCH["ground"], env={})
-    explicit = dict(trk, FINE_CANDIDATES=64)
-    assert config_from_jax(explicit, env={"PCSEQ_FINE_CANDIDATES": "128"}).FINE_CANDIDATES == 64
+    assert "CELL_CAP" not in config_from_jax(pipeline.BENCH["proposal"], env={})
+    explicit = dict(trk, FINE_CANDIDATES=64, CELL_CAP=24)
+    c = config_from_jax(explicit, env={"PCSEQ_FINE_CANDIDATES": "128", "PCSEQ_CELL_CAP": "96"})
+    assert (c.FINE_CANDIDATES, c.CELL_CAP) == (64, 24)
+    from pcseqlearning_tpu.ops import hash_graph as jhg
+
+    # under this process's environment, the JAX package's own cap
+    assert config_from_jax(trk).CELL_CAP == jhg.DEFAULT_CELL_CAP
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
