@@ -50,6 +50,28 @@ host cost.
                  equal a CPU run's within 1e-3 (the ICP's after 1, 2, 4 and 8
                  iterations), the ICP's moved points on both (and the GD
                  solver's at 300 points) within 0.08 m of the true motion
+  6. entry   the README's extraction command through the port's own CLI:
+             (a) scene.write_waymo_sequence writes the bench scene's width
+                 (90,000 points a frame) as a Waymo npy sequence to a
+                 temporary directory, its depth cut from 100 to 24 frames
+                 (the README config tracks three component keys where the
+                 bench tracks one; TRACK_INTERVAL 8 still gives three tracked
+                 frames a key), and pcseqlearning_tpu_torch.train.main runs
+                 the README's three YAML files unchanged on the card, with
+                 only the data path and the stages' DIR / LOG_DIR / SAVE_DIR
+                 set under that directory: stage seconds, frames/hr, points
+                 after SUBSAMPLE, components per key, box mIoU read from the
+                 written all.pkl as tools/parse_cluster_tracking_results.py
+                 reads it (all >= 0.50), each kernel's launches in the run
+                 (> 0), the files written and peak memory; each kernel held
+                 bit for bit to its plain version on the inputs this run gave
+                 it (pair_min's and radius_scan's largest calls, and every
+                 cc_round round of the largest chunk at each of the config's
+                 radii, 1.25, 0.75 and 0.25 m); then the same command again,
+                 which must skip the sequence
+             (b) ground removal and ClusterProposal(CC_GRAPH="knn") on the
+                 golden scene on the card: proposal_miou and num_components
+                 within GOLDEN's rows (GOLDEN was pinned on this path)
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -114,15 +136,16 @@ class Recorder:
     a copy of the call's result; the function itself runs untouched.
     Wrapping the kernels' callers rather than the kernel wrappers leaves
     each wrapper's launch count on the wrapper. ``key_fn`` (optional)
-    counts calls by key. ``seconds`` is the host time of this bookkeeping,
-    which a timed run includes (with any wait for the device that
-    ``size_fn`` forces)."""
+    counts calls by key. ``group_fn`` (optional) also keeps, in ``groups``,
+    the (size, value) of the largest call of each group it gives.
+    ``seconds`` is the host time of this bookkeeping, which a timed run
+    includes (with any wait for the device that ``size_fn`` forces)."""
 
-    def __init__(self, module, name, size_fn, of="args", key_fn=None):
+    def __init__(self, module, name, size_fn, of="args", key_fn=None, group_fn=None):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.value, self.args, self.kwargs, self.size = None, None, None, -1
-        self.keys, self.seconds = Counter(), 0.0
+        self.keys, self.groups, self.seconds = Counter(), {}, 0.0
 
         def wrapper(*args, **kwargs):
             out = self.orig(*args, **kwargs)
@@ -134,6 +157,9 @@ class Recorder:
                 self.size, self.kwargs = s, dict(kwargs)
                 self.args = tuple(_copy(a) for a in args)
                 self.value = _copy(out) if of == "result" else self.args
+            if group_fn is not None and s > self.groups.get(group_fn(*args), (-1,))[0]:
+                self.groups[group_fn(*args)] = (s, _copy(out) if of == "result"
+                                                else tuple(_copy(a) for a in args))
             self.seconds += time.perf_counter() - t0
             return out
 
@@ -507,12 +533,237 @@ def registration_phase(dev, sizes):
     return errs
 
 
+def path_recorders(sg, tb_mod, cc_by_radius=False):
+    """Recorders of the main path's kernel inputs (see ``Recorder``): the
+    batched walk's ``_pair_min`` calls, and the results of ``cc_prep`` (the
+    state every ``cc_round`` of a chunk reuses; with ``cc_by_radius``, the
+    largest chunk of each radius too) and of ``scan_prep``, each sized by
+    its pairs."""
+    return {
+        "pair_min": Recorder(tb_mod, "_pair_min", lambda a, *r: a.shape[0] * a.shape[1]
+                             * r[0].shape[1],
+                             key_fn=lambda a, b, *r: (a.shape[0], a.shape[1], b.shape[1])),
+        "cc_round": Recorder(sg, "cc_prep", lambda st: run_pairs(st["bounds"]), of="result",
+                             group_fn=(lambda fxyz, valid, radius, *r: float(radius))
+                             if cc_by_radius else None),
+        "radius_scan": Recorder(sg, "scan_prep", lambda st: run_pairs(st["bounds"]),
+                                of="result"),
+    }
+
+
+def entry_kernel_checks(recs, pm_mod, sg, radii, rehearse):
+    """Phase 6(a)'s kernels against their plain versions on the inputs that
+    run gave them, bit for bit: pair_min's largest call, every cc_round
+    round of the chunk with the most run pairs at each radius (cc_rounds
+    replayed with each round's kernel labels held to cc_round_plain on the
+    same labels), and radius_scan at the largest claim (k = 1, the claims'
+    k). A mismatch fails the run, and so does a kernel that was not called
+    (the CPU rehearsal's tiny scene makes no claim) or CC not called at
+    each of the proposal's ``radii``. Returns {kernel: max abs err}."""
+    import torch
+
+    errs = {"pair_min": 0.0 if recs["pair_min"].value is None else
+            pair_min_check(pm_mod, "entry, largest call", recs["pair_min"].value),
+            "cc_round": 0.0}
+    kernel = sg.cc_round
+    for radius, (pairs, st) in sorted(recs["cc_round"].groups.items()):
+        bad, changed = [], []
+
+        def checked(xyz, labels, bounds, r2, plan):
+            out = kernel(xyz, labels, bounds, r2, plan)
+            bad.append(int((out != sg.cc_round_plain(xyz, labels, bounds, r2)).sum()))
+            jumped = out  # what cc_rounds tests for convergence after this round
+            for _ in range(5):
+                jumped = jumped[jumped.long()]
+            changed.append(bool((jumped != labels).any()))
+            return out
+
+        # the wrapper counts its launch on the module's name `cc_round`, so
+        # these comparison launches land here, not on the path's count
+        checked.launches = 0
+        sg.cc_round = checked
+        try:
+            _, num = sg.cc_rounds(st)
+        finally:
+            sg.cc_round = kernel
+        stop = "stopped by the round cap (JAX's too)" if changed[-1] else "converged"
+        log(f"# cc_round (entry, r={radius}, {st['sorted_xyz'].shape[0]} slots, {pairs} run "
+            f"pairs): {len(bad)} rounds, {stop}, to {num} components; label mismatches by "
+            f"round {bad}")
+        if any(bad):
+            fail(f"cc_round (entry, r={radius}) disagrees with its plain version")
+    st = recs["radius_scan"].value
+    if (st is None or recs["pair_min"].value is None
+            or sorted(recs["cc_round"].groups) != sorted(float(r) for r in radii)):
+        if not rehearse:
+            fail("entry: a kernel of the path was not called")
+        log("# entry: a kernel of the path was not called at the rehearsal's size")
+        return dict(errs, radius_scan=0.0)
+    args = (st["table"], st["q_xyz"], st["bounds"], st["r2"], 1)
+    (kd, kp), (pd, pp) = sg.radius_scan(*args, st["plan"]), sg.radius_scan_plain(*args)
+    fin = torch.isfinite(pd)
+    errs["radius_scan"] = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
+    bad = int((kp != pp).sum())
+    log(f"# radius_scan (entry, largest claim, {args[1].shape[0]} queries, {args[0].shape[0]} "
+        f"refs, k=1): index mismatches {bad}, max abs d2 err {errs['radius_scan']:.3g}")
+    if bad or errs["radius_scan"] > 0 or not torch.equal(fin, torch.isfinite(kd)):
+        fail("radius_scan (entry) disagrees with its plain version")
+    return errs
+
+
+README_CFGS = ("tools/cfgs/waymo_models/registration/cluster_tracking_TLS_multiradius_every8.yaml",
+               "tools/cfgs/dataset_configs/waymo/registration/all_sequence.yaml",
+               "tools/cfgs/optimizers/registration.yaml")
+
+
+def entry_phase(repo, dev, size, sync, kernels, rehearse):
+    """Phase 6(a): the README's command through train.main on a written
+    Waymo sequence, its kernels held to their plain versions on the inputs
+    that run gave them, then the same command again (a skip). Returns
+    (failures, {kernel: max abs err})."""
+    import pickle
+    import tempfile
+    from collections import defaultdict
+
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch import train
+    from pcseqlearning_tpu_torch.ops import pair_min as pm_mod, sorted_grid as sg
+    from pcseqlearning_tpu_torch.preprocessing import tracking_batched as tb_mod
+    from pcseqlearning_tpu_torch.preprocessing import (ClusterProposal, ClusterTracking,
+                                                       GroundPlaneRemover, SimpleReg)
+    from pcseqlearning_tpu_torch.scene import make_scene, write_waymo_sequence
+
+    errs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as root:
+        t0 = time.perf_counter()
+        write_waymo_sequence(root, *make_scene(num_frames=size[0], points_per_frame=size[1],
+                                               seed=0), "entry_seq")
+        log(f"# entry: wrote {size[0]} frames x {size[1]} points in "
+            f"{time.perf_counter() - t0:.1f} s (the bench scene's width; depth cut from 100 to "
+            f"{size[0]} frames)")
+        out = Path(root) / "out"
+        dirs = {"MODEL.SAVE_DIR": out / "tracking", "MODEL.PREPROCESSORS.0.DIR": out / "height",
+                "MODEL.PREPROCESSORS.0.LOG_DIR": out / "log",
+                "MODEL.PREPROCESSORS.1.DIR": out / "proposal",
+                "MODEL.PREPROCESSORS.2.DIR": out / "tracking"}
+        argv = [str(repo / c) for c in README_CFGS] + [
+            "--device", dev.type, "--set", "DATA_CONFIG.DATA_PATH", root, "ROOT_DIR", root]
+        for k, v in dirs.items():
+            argv += [k, str(v)]
+        stages = [(GroundPlaneRemover, "ground"), (ClusterProposal, "proposal"),
+                  (ClusterTracking, "tracking")]
+
+        def run_main():
+            """train.main(argv) with each stage's seconds (between
+            synchronizes), the points each processed sequence kept after
+            SUBSAMPLE, its components per key, and the kernels' launches."""
+            split, seqs, comps = defaultdict(float), [], {}
+            saved = [(cls, cls.__call__) for cls, _ in stages]
+            for cls, key in stages:
+                cls.__call__ = timed(split, key, cls.__call__, sync)
+            process = SimpleReg.process_sequence
+
+            def record(self, seq_dict):
+                seqs.append(len(seq_dict["point_fxyz"]))
+                seq_dict = process(self, seq_dict)
+                for key in self.preprocessors[1].component_keys:
+                    comps[key] = int(np.asarray(seq_dict[f"point_{key}"]).max()) + 1
+                return seq_dict
+
+            SimpleReg.process_sequence = record
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            try:
+                model = train.main(argv)
+                sync()
+            finally:
+                SimpleReg.process_sequence = process
+                for cls, fn in saved:
+                    cls.__call__ = fn
+            return (model, time.perf_counter() - t0, dict(split), seqs, comps,
+                    {name: fn.launches for name, fn in kernels.items()})
+
+        if not rehearse:
+            torch.cuda.reset_peak_memory_stats()
+        recs = path_recorders(sg, tb_mod, cc_by_radius=True)
+        try:
+            model, wall, split, seqs, comps, launches = run_main()
+        finally:
+            for r in recs.values():
+                r.restore()
+        peak = 0.0 if rehearse else torch.cuda.max_memory_allocated() / 1e9
+        with open(out / "tracking" / "entry_seq" / "all.pkl", "rb") as f:
+            boxes = pickle.load(f)  # read as tools/parse_cluster_tracking_results.py reads it
+        iou, mov = np.asarray(boxes["best_iou"]), np.asarray(boxes["moving"]).astype(bool)
+        miou = [float(iou.mean()), float(iou[mov].mean()) if mov.any() else None,
+                float(iou[~mov].mean()) if (~mov).any() else None]
+        files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+        rec = dict(scene=f"{size[0]} frames x {size[1]} points", main_s=wall, stages_s=split,
+                   pipeline_s=sum(split.values()), frames_per_hour=size[0] / wall * 3600,
+                   points_after_subsample=seqs, components=comps,
+                   walk_frames=model.preprocessors[-1].walk_frames,
+                   box_miou_all_moving_static=miou, launches=launches, peak_gb=peak, files=files,
+                   recorders_s=sum(r.seconds for r in recs.values()))
+        log(f"# entry {json.dumps(rec)}")
+        kernel_errs = entry_kernel_checks(recs, pm_mod, sg, model.preprocessors[1].radii,
+                                          rehearse)
+        del recs
+        if not rehearse:
+            if not miou[0] >= 0.50:
+                errs.append(f"entry box mIoU all {miou[0]:.4f} < 0.50")
+            if not all(n > 0 for n in launches.values()):
+                errs.append(f"entry kernel launches {launches}")
+        need = ["height/entry_seq/pillar_height.npz", "log/height0.5/entry_seq.txt",
+                "tracking/entry_seq/all.pkl", "tracking/entry_seq/000_component_rad1x25.pkl"]
+        if [f for f in need if f not in files]:
+            errs.append(f"entry: missing files {[f for f in need if f not in files]}")
+
+        _, wall, split, seqs, _, launches = run_main()  # the same command again: a skip
+        pipe = sum(split.values())
+        log(f"# entry rerun: main() {wall:.3f} s (loading the sequence and SUBSAMPLE "
+            f"included), pipeline {pipe:.3f} s, sequences processed {len(seqs)}, "
+            f"launches {json.dumps(launches)}")
+        if seqs or pipe > 1.0:
+            errs.append(f"the rerun did not skip the sequence ({len(seqs)} processed, "
+                        f"{pipe:.3f} s of pipeline)")
+    return errs, kernel_errs
+
+
+def knn_proposal_phase(dev, size, sync):
+    """Phase 6(b): ground removal and the kNN-graph proposal on the golden
+    scene, against GOLDEN's proposal rows. Returns failures."""
+    import numpy as np
+
+    from pcseqlearning_tpu_torch import pipeline
+    from pcseqlearning_tpu_torch.convert import config_from_jax
+    from pcseqlearning_tpu_torch.preprocessing import ClusterProposal, GroundPlaneRemover
+    from pcseqlearning_tpu_torch.scene import scene_dict
+
+    d = GroundPlaneRemover(config_from_jax(pipeline.PARITY["ground"]), device=dev)(
+        scene_dict(*size, frame_id="parity_seq_000"))
+    t0 = time.perf_counter()
+    d = ClusterProposal(config_from_jax(dict(pipeline.PARITY["proposal"], CC_GRAPH="knn")),
+                        device=dev)(d)
+    sync()
+    stats = dict(proposal_miou=float(np.asarray(d["gt_box_best_iou"]).mean()),
+                 num_components=int(np.asarray(d["point_component_rad1x25"]).max()) + 1)
+    log(f"# knn proposal (golden scene, CC_GRAPH=knn): {time.perf_counter() - t0:.3f} s "
+        f"{json.dumps(stats)}; GOLDEN proposal_miou {GOLDEN['proposal_miou']}, num_components "
+        f"{GOLDEN['num_components']}")
+    return [f"knn proposal {k} {v} outside GOLDEN {GOLDEN[k][0]} +- {GOLDEN[k][1]}"
+            for k, v in stats.items() if abs(v - GOLDEN[k][0]) > GOLDEN[k][1]]
+
+
 def main():
     # cuBLAS keeps a fixed workspace, so that phase 5's matrix products are
     # reproducible too (read when the first cuBLAS handle is made)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
+    t_start = time.perf_counter()
     rehearse = "--cpu-rehearsal" in sys.argv[1:]
     if not rehearse and not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -523,14 +774,14 @@ def main():
     if rehearse:
         gpu_line, dev = "cpu rehearsal", torch.device("cpu")
         golden_size, bench_size, fixed_c = (6, 2500), (10, 2500), 16
-        walk_size, rigid_sizes = (10, 2500), (60, 400)
+        walk_size, rigid_sizes, entry_size = (10, 2500), (60, 400), (4, 600)
 
         def sync():
             pass
     else:
         gpu_line, dev = smi("name,power.limit"), torch.device("cuda")
         golden_size, bench_size, fixed_c = (12, 20_000), (100, 90_000), 2048
-        walk_size, rigid_sizes = (24, 90_000), (60, 4000)
+        walk_size, rigid_sizes, entry_size = (24, 90_000), (60, 4000), (24, 90_000)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -579,14 +830,7 @@ def main():
     log(f"# bench scene: {bench_size[0]} frames x {bench_size[1]} points built in "
         f"{time.perf_counter() - t0:.1f} s")
     stages = pipeline.build_stages(pipeline.BENCH, device=dev)
-    recs = {
-        "pair_min": Recorder(tb_mod, "_pair_min", lambda a, *r: a.shape[0] * a.shape[1]
-                             * r[0].shape[1],
-                             key_fn=lambda a, b, *r: (a.shape[0], a.shape[1], b.shape[1])),
-        "cc_round": Recorder(sg, "cc_prep", lambda st: run_pairs(st["bounds"]), of="result"),
-        "radius_scan": Recorder(sg, "scan_prep", lambda st: run_pairs(st["bounds"]),
-                                of="result"),
-    }
+    recs = path_recorders(sg, tb_mod)
     telemetry.reset()
     if not rehearse:
         torch.cuda.reset_peak_memory_stats()
@@ -761,11 +1005,24 @@ def main():
     if errs and not rehearse:
         fail("; ".join(errs))
 
+    # ---- 6. the entry point ---------------------------------------------------
+    t0 = time.perf_counter()
+    errs, entry_errs = entry_phase(repo, dev, entry_size, sync, kernels, rehearse)
+    for r in rows:  # the largest error over both phases' comparisons
+        r["max_abs_err"] = max(r["max_abs_err"], entry_errs[r["name"]])
+    log(f"# phase 6(a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs += knn_proposal_phase(dev, golden_size, sync)
+    log(f"# phase 6(b): {time.perf_counter() - t0:.1f} s")
+    if errs and not rehearse:
+        fail("; ".join(errs))
+
     for r in rows:
         log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "
             f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']}, "
             f"library {r['library_ms']}) launches {r['launches']} shape {r['shape']}")
     log(f"# ledger: {json.dumps(dict(gpu=gpu_line, golden=stats, bench_times=times, bench_wall=wall, bench_frames_per_hour=n_frames / wall * 3600, peak_gb=peak_gb, box_miou=[all_m, mov_m, stat_m]))}")
+    log(f"# chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     if rehearse:
         log("# cpu rehearsal finished: no device result")
         return

@@ -14,9 +14,14 @@ Layers:
                   connected components) and radius_scan (k-NN claims)
   preprocessing/  GroundPlaneRemover, ClusterProposal, ClusterTracking,
                   registration, the GD solver, SimpleReg
-  utils/          EDict, bucketing, frame index, telemetry
+  datasets/       the Waymo sequence dataset, processors, loader
+  models/         build_network (SimpleReg)
+  utils/          EDict, bucketing, frame index, telemetry, the YAML
+                  subset reader, logger and seeding
+  config.py       YAML configs with _BASE_CONFIG_ includes and overrides
+  train.py        the CLI: python -m pcseqlearning_tpu_torch.train
   convert.py      JAX-side config + environment -> explicit port config
-  scene.py        the synthetic scenes
+  scene.py        the synthetic scenes, and writing one as a Waymo sequence
 
 Entry points run on the card (``device="cuda"``) and raise when CUDA is
 absent, unless the caller passes ``device="cpu"``; on CPU tensors every

@@ -1,0 +1,245 @@
+"""Waymo sequence dataset over the npy/pkl layout of
+``tools/create_waymo_infos.py`` (counterpart of
+pcseqlearning_tpu.datasets.waymo_dataset; host NumPy, as there).
+
+Per-sequence info pkls feed a (sequence, sample) pool; ``get_lidar`` loads
+``NNNN.npy`` with the channel normalisation (tanh(intensity), range / 75,
+rimage_w * 2650, rimage_h * 64); segmentation labels come from
+``NNNN_seg.npy`` (or ``_propseg.npy``). Multi-sweep assembly aligns every
+frame to the anchor frame's ego pose, attaches the sweep id, transforms the
+boxes and their headings, and pads the objects per sweep. In sequence mode
+(NUM_SWEEPS covering the sequence) there is one item per sequence, its last
+sample being the anchor.
+
+Not ported (NotImplementedError; ROADMAP.md §2, data and runtime):
+SPHERICAL_RESAMPLING, MIX3D (training), WITH_TIME_FEAT, USE_SHARED_MEMORY
+(the per-frame cache), ``evaluation``. No config under ``tools/cfgs/``
+sets any of them.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..ops import boxes as box_ops
+from ..utils.edict import EDict
+from .dataset import DatasetTemplate
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md §2, data and runtime)"
+
+
+def _boxes_to_corners_np(boxes):
+    """[B, 7+] boxes -> [B, 8, 3] float32 corners, on the CPU."""
+    if len(boxes) == 0:
+        return np.zeros((0, 8, 3), np.float32)
+    return box_ops.boxes_to_corners_3d(
+        torch.as_tensor(boxes[:, :7].astype(np.float32))).numpy()
+
+
+class WaymoDataset(DatasetTemplate):
+    def __init__(self, dataset_cfg, class_names, training=True, root_path=None, logger=None,
+                 rng=None):
+        super().__init__(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
+                         root_path=root_path, logger=logger, rng=rng)
+        cfg = self.dataset_cfg
+        for key, used in (("SPHERICAL_RESAMPLING", True), ("MIX3D", training),
+                          ("WITH_TIME_FEAT", True), ("USE_SHARED_MEMORY", True)):
+            if used and cfg.get(key, None):
+                raise NotImplementedError(f"WaymoDataset: {key} {_NOT_PORTED}")
+        self.data_path = (Path(root_path or cfg.get("DATA_PATH", "."))
+                          / cfg.get("PROCESSED_DATA_TAG", "waymo_processed_data"))
+        self.num_sweeps = int(cfg.get("NUM_SWEEPS", 1))
+        self.sweep_dir = int(cfg.get("SWEEP_DIR", -1))
+        self.load_seg = bool(cfg.get("LOAD_SEG", False))
+        interval = cfg.get("SAMPLED_INTERVAL", 1)
+        self.sampled_interval = int(interval.get("train" if training else "test", 1)
+                                    if isinstance(interval, dict) else interval)
+        self.infos = []
+        self.info_pool = {}
+        self.include_waymo_data()
+
+    def include_waymo_data(self):
+        """Load the per-sequence info pkls: the sequences of SPLIT_DIR's file
+        when it exists, else every sequence directory under the data path."""
+        split_file = self.dataset_cfg.get("SPLIT_DIR", None)
+        seq_list = []
+        if split_file and os.path.exists(split_file):
+            with open(split_file) as f:
+                seq_list = [x.strip().split(".")[0] for x in f if x.strip()]
+        elif self.data_path.exists():
+            seq_list = sorted(d.name for d in self.data_path.iterdir() if d.is_dir())
+        for seq in seq_list:
+            pkl = self.data_path / seq / f"{seq}.pkl"
+            if not pkl.exists():
+                continue
+            with open(pkl, "rb") as f:
+                infos = pickle.load(f)
+            self.infos.extend(infos[::self.sampled_interval])
+        for info in self.infos:
+            pc = info["point_cloud"]
+            self.info_pool[(pc["lidar_sequence"], pc["sample_idx"])] = info
+        # sequence mode: one item per sequence, anchored at its last sample
+        if self.num_sweeps > 1 and self.dataset_cfg.get("SEQUENCE_MODE", self.num_sweeps >= 100):
+            last = {}
+            for info in self.infos:
+                pc = info["point_cloud"]
+                seq = pc["lidar_sequence"]
+                if seq not in last or pc["sample_idx"] > last[seq]["point_cloud"]["sample_idx"]:
+                    last[seq] = info
+            self.infos = [last[s] for s in sorted(last)]
+
+    def __len__(self):
+        return len(self.infos)
+
+    def get_lidar(self, sequence_name, sample_idx):
+        pts = np.load(self.data_path / sequence_name / ("%04d.npy" % sample_idx)).astype(np.float32)
+        pts[:, 3] = np.tanh(pts[:, 3])
+        if pts.shape[1] > 5:
+            pts[:, 5] /= 75.0
+        if pts.shape[1] > 7:
+            pts[:, 7] *= 64
+            pts[:, 6] *= 2650
+        return pts
+
+    def get_seg_label(self, sequence_name, sample_idx):
+        seg_file = self.data_path / sequence_name / ("%04d_seg.npy" % sample_idx)
+        if not seg_file.exists():
+            seg_file = self.data_path / sequence_name / ("%04d_propseg.npy" % sample_idx)
+        if not seg_file.exists():
+            return None
+        return np.load(seg_file)
+
+    def load_frame(self, info):
+        """One frame as point-wise, object-wise and scene-wise dicts."""
+        pc = info["point_cloud"]
+        seq, idx = pc["lidar_sequence"], pc["sample_idx"]
+        points = self.get_lidar(seq, idx)
+        point_wise = EDict(point_xyz=points[:, :3], point_feat=points[:, 3:])
+        if self.load_seg:
+            seg = self.get_seg_label(seq, idx)
+            if seg is not None:
+                point_wise.instance_label = seg[:, 0].astype(np.int64)
+                point_wise.segmentation_label = seg[:, 1].astype(np.int64)
+        annos = info.get("annos", {})
+        object_wise = EDict(
+            gt_box_attr=np.asarray(annos.get("gt_boxes_lidar", np.zeros((0, 7))))
+            .astype(np.float32).reshape(-1, 7),
+            gt_names=np.asarray(annos.get("name", [])).astype(str),
+            obj_ids=np.asarray(annos.get("obj_ids", [])).astype(str),
+            num_points_in_gt=np.asarray(annos.get("num_points_in_gt", np.zeros(0)))
+            .astype(np.int64),
+        )
+        scene_wise = EDict(frame_id=info.get("frame_id", f"{seq}_{idx:03d}"),
+                           pose=np.asarray(info.get("pose", np.eye(4))).reshape(4, 4))
+        if "top_lidar_pose" in info:
+            scene_wise.top_lidar_origin = np.asarray(info["top_lidar_pose"]).reshape(4, 4)[:3, 3]
+        return EDict(point_wise=point_wise, object_wise=object_wise, scene_wise=scene_wise)
+
+    def assemble_sweeps(self, index):
+        """The item's sweeps in the anchor frame's ego coordinates, objects
+        padded per sweep and flattened."""
+        info = copy.deepcopy(self.infos[index])
+        cur_idx = info["point_cloud"]["sample_idx"]
+        seq = info["point_cloud"]["lidar_sequence"]
+        data_dicts = [self.load_frame(info)]
+        if self.num_sweeps > 1:
+            for cur in range(cur_idx + self.sweep_dir, cur_idx + self.sweep_dir * self.num_sweeps,
+                             self.sweep_dir):
+                if (seq, cur) not in self.info_pool:
+                    continue
+                dd = self.load_frame(self.info_pool[(seq, cur)])
+                data_dicts = [dd] + data_dicts if self.sweep_dir == -1 else data_dicts + [dd]
+
+        anchor = data_dicts[-1] if self.sweep_dir == -1 else data_dicts[0]
+        T0_inv = np.linalg.inv(anchor.scene_wise.pose)
+        max_objs = 0
+        for dd in data_dicts:
+            T = T0_inv @ dd.scene_wise.pose
+            pw = dd.point_wise
+            pw.point_xyz = (pw.point_xyz @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+            fid = int(str(dd.scene_wise.frame_id)[-3:])
+            pw.point_sweep = np.full((len(pw.point_xyz), 1), fid, np.int32)
+            boxes = dd.object_wise.gt_box_attr
+            if len(boxes):
+                corners = _boxes_to_corners_np(boxes)
+                corners = (corners @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+                boxes[:, :3] = boxes[:, :3] @ T[:3, :3].T + T[:3, 3]
+                theta = boxes[:, 6]
+                heading = np.stack([np.cos(theta), np.sin(theta), np.zeros_like(theta)], -1)
+                heading = heading @ T[:3, :3].T
+                nrm = np.linalg.norm(heading[:, :2], axis=-1, keepdims=True)
+                heading[:, :2] /= np.maximum(nrm, 1e-6)
+                boxes[:, 6] = np.arctan2(heading[:, 1], heading[:, 0])
+                dd.object_wise.gt_box_corners_3d = corners.reshape(-1, 24)
+            else:
+                dd.object_wise.gt_box_corners_3d = np.zeros((0, 24), np.float32)
+            dd.object_wise.gt_box_attr = boxes
+            if "top_lidar_origin" in dd.scene_wise:
+                o = dd.scene_wise.top_lidar_origin
+                dd.scene_wise.top_lidar_origin = o @ T[:3, :3].T + T[:3, 3]
+            max_objs = max(max_objs, len(boxes))
+
+        max_objs = max(max_objs, 1)
+        merged = EDict(point_wise=EDict(), object_wise=EDict(), scene_wise=EDict())
+        for k in data_dicts[0].point_wise:
+            merged.point_wise[k] = np.concatenate([dd.point_wise[k] for dd in data_dicts], axis=0)
+        for k in ("gt_box_attr", "gt_names", "obj_ids", "num_points_in_gt", "gt_box_corners_3d"):
+            padded = []
+            for dd in data_dicts:
+                v = dd.object_wise.get(k)
+                if v is None:
+                    continue
+                v = np.asarray(v)
+                pad_n = max_objs - v.shape[0]
+                if pad_n > 0:
+                    pad = (np.full((pad_n,), "", v.dtype) if v.dtype.kind in "US"
+                           else np.zeros((pad_n,) + v.shape[1:], v.dtype))
+                    v = np.concatenate([v, pad], axis=0)
+                padded.append(v)
+            if padded:
+                merged.object_wise[k] = np.concatenate(padded, axis=0)
+        merged.scene_wise.frame_id = anchor.scene_wise.frame_id
+        merged.scene_wise.pose = np.stack([dd.scene_wise.pose for dd in data_dicts])
+        merged.scene_wise.num_sweeps = len(data_dicts)
+        if "top_lidar_origin" in anchor.scene_wise:
+            merged.scene_wise.top_lidar_origin = np.stack(
+                [dd.scene_wise.get("top_lidar_origin", np.zeros(3)) for dd in data_dicts])
+        return merged
+
+    def __getitem__(self, index):
+        merged = self.assemble_sweeps(index)
+        cls_map = {n: i + 1 for i, n in enumerate(self.class_names)}
+        ow = merged.object_wise
+        names = ow.get("gt_names", np.zeros(0, str))
+        cls_label = np.asarray([cls_map.get(n, 0) for n in names], np.int64)
+        attr = ow.get("gt_box_attr", np.zeros((0, 7), np.float32))
+        data_dict = {
+            "points": np.concatenate([merged.point_wise.point_xyz, merged.point_wise.point_feat],
+                                     axis=1).astype(np.float32),
+            "point_sweep": merged.point_wise.point_sweep.reshape(-1),
+            "frame_id": str(merged.scene_wise.frame_id),
+            "pose": merged.scene_wise.pose,
+            "num_sweeps": merged.scene_wise.num_sweeps,
+            "gt_box_attr": attr,
+            "gt_box_cls_label": cls_label,
+            "obj_ids": ow.get("obj_ids", np.zeros(0, str)),
+            "num_points_in_gt": ow.get("num_points_in_gt", np.zeros(0, np.int64)),
+            "gt_box_corners_3d": ow.get("gt_box_corners_3d", np.zeros((0, 24), np.float32)),
+            "augmented": np.zeros(len(names), bool),
+            "gt_boxes": (np.concatenate([attr, cls_label[:, None].astype(np.float32)], axis=1)
+                         if len(names) else np.zeros((0, 8), np.float32)),
+            "gt_names": names,
+        }
+        for k in ("segmentation_label", "instance_label"):
+            if k in merged.point_wise:
+                data_dict[k] = merged.point_wise[k]
+        return self.prepare_data(data_dict)
+
+    def evaluation(self, det_annos, class_names, eval_metric="waymo", **kwargs):
+        raise NotImplementedError(f"WaymoDataset.evaluation {_NOT_PORTED}")

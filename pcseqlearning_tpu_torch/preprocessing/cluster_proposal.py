@@ -3,25 +3,43 @@
 single device).
 
 Per radius, the sequence is cut into CHUNK_FRAMES-frame chunks and each
-chunk's exact same-frame radius-graph components come from the sorted-grid
-CC (``ops.sorted_grid.connected_components_radius``, the ``cc_round``
-kernel). Proposals are scored per frame by best point-set IoU against the
-GT boxes, batched over frames.
+chunk is labelled by one of the JAX module's two CC paths, chosen by the
+config key CC_GRAPH:
+
+  "radius" (default)  the exact same-frame radius-graph components of the
+                      sorted-grid CC (``ops.sorted_grid``, the ``cc_round``
+                      kernel): the JAX module's TPU path
+  "knn"               a spatial-hash neighbour table (``ops.hash_graph``,
+                      CC_NEIGHBORS nearest within the radius, CC_CELL_CAP
+                      rows scanned per probe) through kNN-graph label
+                      propagation (``ops.connected_components``): the JAX
+                      module's path on every other backend, or with
+                      PCSEQ_PALLAS=0 / PCSEQ_PALLAS_SCAN=0
+
+``convert.config_from_jax`` writes the key the JAX side would take. Nothing
+switches from one path to the other on its own. Proposals are scored per
+frame by best point-set IoU against the GT boxes, batched over frames. DIR,
+as in the JAX module, only creates its directory.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops import boxes as box_ops
-from ..ops import segment_ops
+from ..ops import connected_components as cc
+from ..ops import hash_graph, segment_ops
 from ..ops.sorted_grid import connected_components_radius
 from ..utils import telemetry
 from ..utils.edict import EDict
 from ..utils.frame_index import FrameIndex
 from ..utils.padding import bucket_size
+
+CC_GRAPHS = ("radius", "knn")
 
 
 def frame_table(fxyz, frame, p_cap=None):
@@ -90,24 +108,47 @@ def evaluate_frames(xyz, pvalid, comp_local, boxes, bvalid, c_cap):
     return box_best_iou, gt, pred
 
 
+def knn_chunk_components(pts, radius, k, cell_cap):
+    """The kNN-graph CC of one chunk's points [n, 4] (frame, x, y, z), padded
+    as the JAX module pads them (to ``bucket_size(n)`` rows at 1e8, which
+    sizes the hash table). Returns (component [n] int32, count)."""
+    n, cap = pts.shape[0], bucket_size(pts.shape[0])
+    padded = torch.full((cap, 4), 1e8, dtype=torch.float32, device=pts.device)
+    padded[:n] = pts
+    valid = torch.arange(cap, device=pts.device) < n
+    idx, _, mask = hash_graph.radius_graph(padded, padded, radius, k, ref_valid=valid,
+                                           query_valid=valid, cell_cap=cell_cap)
+    comp, num = cc.compact_labels(cc.connected_components_knn(idx, mask), node_valid=valid)
+    return comp[:n], num
+
+
 class ClusterProposal:
-    """Chunked multi-radius CC + per-frame evaluation (config keys
-    GRAPH.RADIUS, COMPONENT_KEYS, CHUNK_FRAMES as in the JAX module; the
-    kNN-CC keys MAX_NUM_NEIGHBORS / CELL_CAP / CC_* have no effect, the CC
-    here is exact). Not ported: NUM_SHARDS (multi-device) and DIR."""
+    """Chunked multi-radius CC + per-frame evaluation. Config keys as in the
+    JAX module: GRAPH.RADIUS, GRAPH.MAX_NUM_NEIGHBORS, COMPONENT_KEYS,
+    CHUNK_FRAMES, CELL_CAP, CC_NEIGHBORS (default min(MAX_NUM_NEIGHBORS,
+    16)), CC_CELL_CAP (default min(CELL_CAP, 24); the JAX module reads 24
+    from PCSEQ_CELL_CAP when set) and DIR; the port's CC_GRAPH picks the CC
+    path. Not ported: NUM_SHARDS (multi-device)."""
 
     def __init__(self, model_cfg, runtime_cfg=None, device="cuda"):
         self.model_cfg = EDict(model_cfg)
-        for key in ("DIR", "NUM_SHARDS"):
-            if key in self.model_cfg:
-                raise ValueError(f"ClusterProposal: {key} is not supported by the port")
+        if "NUM_SHARDS" in self.model_cfg:
+            raise ValueError("ClusterProposal: NUM_SHARDS is not supported by the port")
         self.device = resolve_device(device)
         self.component_keys = list(self.model_cfg["COMPONENT_KEYS"])
-        radii = self.model_cfg["GRAPH"]["RADIUS"]
+        graph_cfg = self.model_cfg["GRAPH"]
+        radii = graph_cfg["RADIUS"]
         if not isinstance(radii, (list, tuple)):
             radii = [radii] * len(self.component_keys)
         self.radii = [float(r) for r in radii]
         self.chunk_frames = int(self.model_cfg.get("CHUNK_FRAMES", 10))
+        self.cc_graph = str(self.model_cfg.get("CC_GRAPH", "radius"))
+        if self.cc_graph not in CC_GRAPHS:
+            raise ValueError(f"ClusterProposal: CC_GRAPH {self.cc_graph!r} not in {CC_GRAPHS}")
+        cell_cap = int(self.model_cfg.get("CELL_CAP", hash_graph.DEFAULT_CELL_CAP))
+        self.cc_neighbors = int(self.model_cfg.get(
+            "CC_NEIGHBORS", min(int(graph_cfg.get("MAX_NUM_NEIGHBORS", 32)), 16)))
+        self.cc_cell_cap = int(self.model_cfg.get("CC_CELL_CAP", min(cell_cap, 24)))
 
     def propose_cluster(self, seq_dict):
         fxyz = np.asarray(seq_dict["point_fxyz"])
@@ -126,13 +167,18 @@ class ClusterProposal:
             pts = pts_all[torch.as_tensor(m, device=self.device)]
             span = float((pts_np[:, 1:3].max(0) - pts_np[:, 1:3].min(0)).max())
             for comp_key, radius in zip(self.component_keys, self.radii):
-                cells = int(np.ceil(span / radius)) + 3
-                XY = 1 << max(cells - 1, 1).bit_length()
-                comp, num = connected_components_radius(
-                    pts, None, radius, F=self.chunk_frames, X=XY, Y=XY)
+                if self.cc_graph == "knn":
+                    comp, num = knn_chunk_components(pts, radius, self.cc_neighbors,
+                                                     self.cc_cell_cap)
+                else:
+                    cells = int(np.ceil(span / radius)) + 3
+                    XY = 1 << max(cells - 1, 1).bit_length()
+                    comp, num = connected_components_radius(
+                        pts, None, radius, F=self.chunk_frames, X=XY, Y=XY)
                 components[comp_key][m] = comp.cpu().numpy().astype(np.int64) + totals[comp_key]
                 totals[comp_key] += num
-        # the CUDA CC walks whole cell runs: no scan window is ever truncated
+        # neither path has a scan window to truncate (the CUDA CC walks whole
+        # cell runs)
         telemetry.add("proposal_scan_windows_truncated", 0)
         for comp_key in self.component_keys:
             seq_dict[f"point_{comp_key}"] = components[comp_key]
@@ -244,4 +290,6 @@ class ClusterProposal:
         seq_dict = self.propose_cluster(seq_dict)
         if "gt_box_attr" in seq_dict:
             seq_dict = self.evaluate_proposal(seq_dict)
+        if "DIR" in self.model_cfg:
+            os.makedirs(self.model_cfg.DIR, exist_ok=True)
         return seq_dict

@@ -31,6 +31,9 @@ bookkeeping and box IoU accounting stay on the host, as in the JAX module.
 
 from __future__ import annotations
 
+import os
+import pickle
+
 import numpy as np
 import torch
 
@@ -158,20 +161,30 @@ def _anchor_components(frame, C):
     return deg, diam, (deg > 0.5) & (diam < 12.5)
 
 
+def _save(path, table):
+    """Pickle ``table`` (host NumPy arrays) as a plain dict, as the JAX
+    module does: a reader needs neither torch nor a card."""
+    with open(path, "wb") as f:
+        pickle.dump(dict(table), f)
+
+
 class ClusterTracking:
     """Config keys as in the JAX module (WALK_MODE, DEVICE_WALK,
     STEP_COMPILE_BUDGET, REGISTRATION.SOLVER among them). Extra port keys,
     which ``convert.config_from_jax`` fills from the JAX side's import-time
     environment: ANGLE_VELO_EXEMPT (default 0.05), FINE_CANDIDATES (default
-    256) and CELL_CAP (default 48, the hash grid's per-probe scan cap). DIR
-    is not ported. ``walk_frames`` counts, per call, the tracked frames each
-    walk handled."""
+    256) and CELL_CAP (default 48, the hash grid's per-probe scan cap).
+    ``walk_frames`` counts, per call, the tracked frames each walk handled.
+
+    With DIR, as in the JAX module: a sequence whose ``DIR/<sequence>/all.pkl``
+    exists is skipped; otherwise every tracked frame's extraction goes to
+    ``DIR/<sequence>/<frame:03d>_<component key>.pkl`` and the sequence's box
+    table to ``all.pkl``, as pickled dicts of NumPy arrays under the JAX
+    module's keys (``tools/parse_cluster_tracking_results.py`` reads them)."""
 
     def __init__(self, model_cfg, runtime_cfg=None, device="cuda"):
         self.model_cfg = EDict(model_cfg)
         cfg = self.model_cfg
-        if "DIR" in cfg:
-            raise ValueError("ClusterTracking: DIR is not supported by the port")
         self.device = resolve_device(device)
         reg_cfg = cfg["REGISTRATION"]
         self.stopping_delta = [float(s) for s in reg_cfg["STOPPING_DELTA"]]
@@ -839,6 +852,15 @@ class ClusterTracking:
 
     def __call__(self, seq_dict):
         self.walk_frames = dict.fromkeys(WALKS, 0)
+        sequence_id = str(seq_dict.get("frame_id", "seq"))[:-4] or "seq"
+        outfolder = (os.path.join(self.model_cfg.DIR, sequence_id) if "DIR" in self.model_cfg
+                     else None)
+        if outfolder:
+            outpath = os.path.join(outfolder, "all.pkl")
+            if os.path.exists(outpath):
+                print(f"{outpath} already exists. skipping...")
+                return seq_dict
+            os.makedirs(outfolder, exist_ok=True)
         seq_points, all_points, seq_dev, seq_index = self._load_sequence(seq_dict)
         frame = seq_points.frame
         num_frames = int(frame.max()) + 1 if len(frame) else 0
@@ -859,7 +881,11 @@ class ClusterTracking:
                 extracted = self.track_frame(seq_points, fr, seq_boxes, seq_index)
                 if extracted is None or len(extracted.fxyz) == 0:
                     continue
-                self.extract_traces_and_update_boxes(all_points, extracted, seq_boxes)
+                extracted_f, _ = self.extract_traces_and_update_boxes(all_points, extracted,
+                                                                      seq_boxes)
+                if outfolder:
+                    _save(os.path.join(outfolder, f"{frame_id:03d}_{comp_key}.pkl"),
+                          extracted_f)
                 sb = ((seq_boxes.frame >= frame_id - self.track_interval)
                       & (seq_boxes.frame <= frame_id + self.track_interval))
                 if sb.any():
@@ -872,5 +898,7 @@ class ClusterTracking:
         moving_miou = float(seq_boxes.best_iou[moving].mean()) if moving.any() else "NA"
         print(f"All Box mIoU={seq_boxes.best_iou.mean()}")
         print(f"Moving Box mIoU={moving_miou}")
+        if outfolder:
+            _save(outpath, seq_boxes)
         seq_dict["seq_boxes"] = seq_boxes
         return seq_dict

@@ -15,9 +15,19 @@ pcseqlearning_tpu.preprocessing.ground_removal).
 
 Everything runs on the entry point's device; the only host reads are loop
 conditions (the IRLS and L1 early stops) and the final per-point masks.
+
+With DIR, the stage keeps each sequence's height field in
+``DIR/<sequence>/pillar_height.npz`` (keys ``pillar_height`` and
+``pillar_min_z``, the JAX module's file): a sequence whose file exists skips
+steps 2-5 and reads its heights from the file (a warm start). With LOG_DIR
+and segmentation labels, it writes ground precision and coverage per
+TRUNCATE_HEIGHT to ``LOG_DIR/height<h>/<sequence>.txt`` in the JAX module's
+format (``tools/parse_ground_removal_results.py`` reads both).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -266,21 +276,29 @@ def l1_minimization(pillar_min_z, pillar_weight, pillar_dims, lr, decay_steps, r
 def ground_solve_fused(fxyz0, pc_range_min, pillar_dims, pillar_size=(2.0, 2.0),
                        use_ransac=True, joint_opt=True, lr=0.01, decay_steps=(1600,),
                        rigid_weight=0.5, max_iters=10000, sigma2=0.0025, tls_k=8,
-                       cell=_BASE_CELL):
+                       cell=_BASE_CELL, field=None):
     """Grid subsample -> pillar stats -> 30-ratio RANSAC -> TLS propagation
-    -> L1 height field -> per-point height / horizon / error."""
+    -> L1 height field -> per-point height / horizon / error. With ``field``
+    (a stored ``pillar_height`` and ``pillar_min_z``, [P] each: the DIR warm
+    start) the RANSAC, TLS and L1 steps are skipped and the per-point
+    outputs come from the stored field."""
     vox = grid_utils.grid_sample_mean(fxyz0, list(cell))
     vox_bxyz, vox_valid, inverse = vox["bxyz"], vox["valid"], vox["inverse"]
-    pcr = torch.as_tensor(pc_range_min, dtype=torch.float32, device=fxyz0.device)
+    dev = fxyz0.device
+    pcr = torch.as_tensor(pc_range_min, dtype=torch.float32, device=dev)
     points, pillars = format_pillars(vox_bxyz, vox_valid, pillar_size, pcr, pillar_dims)
-    if use_ransac:
-        pillars.min_z = ransac_min_height(vox_bxyz, vox_valid, points, pillars, pillar_dims,
-                                          sigma2, tls_k)[0]
-    if joint_opt:
-        height = l1_minimization(pillars.min_z, pillars.weight, pillar_dims, lr,
-                                 tuple(decay_steps), rigid_weight, max_iters).reshape(-1)
+    if field is not None:
+        height = torch.as_tensor(np.asarray(field["pillar_height"]), device=dev).reshape(-1)
+        pillars.min_z = torch.as_tensor(np.asarray(field["pillar_min_z"]), device=dev).reshape(-1)
     else:
-        height = pillars.min_z
+        if use_ransac:
+            pillars.min_z = ransac_min_height(vox_bxyz, vox_valid, points, pillars, pillar_dims,
+                                              sigma2, tls_k)[0]
+        if joint_opt:
+            height = l1_minimization(pillars.min_z, pillars.weight, pillar_dims, lr,
+                                     tuple(decay_steps), rigid_weight, max_iters).reshape(-1)
+        else:
+            height = pillars.min_z
     pidx = torch.clamp(points.pillar_idx, 0, height.shape[0] - 1)
     vheight = vox_bxyz[:, 3] - height[pidx]
     vmin = pillars.min_z[pidx]
@@ -317,19 +335,17 @@ def count_voxel_levels(fxyz0, solve_cap, S=6):
 
 class GroundPlaneRemover:
     """Subsample, solve, truncate below TRUNCATE_HEIGHT (config keys as in
-    the JAX module). The ``full_*`` keys keep the pre-removal arrays.
-
-    Not ported: the DIR warm-start cache and the LOG_DIR stat files (the
-    constructor rejects both keys)."""
+    the JAX module, DIR and LOG_DIR among them). The ``full_*`` keys keep the
+    pre-removal arrays."""
 
     def __init__(self, model_cfg, runtime_cfg=None, device="cuda"):
         self.model_cfg = EDict(model_cfg)
-        for key in ("DIR", "LOG_DIR"):
-            if key in self.model_cfg:
-                raise ValueError(f"GroundPlaneRemover: {key} is not supported by the port")
         self.device = resolve_device(device)
 
-    def _solve(self, pts_np):
+    def _solve(self, pts_np, warm=None):
+        """The per-point height, horizon and error and the pillar height
+        field; from the field in ``warm`` (a loaded pillar_height.npz),
+        without the solve, when it is given."""
         cfg = self.model_cfg
         fxyz0 = torch.as_tensor(pts_np, dtype=torch.float32, device=self.device).clone()
         fxyz0[:, 0] = 0.0  # frame-agnostic
@@ -353,15 +369,63 @@ class GroundPlaneRemover:
             sigma2=float(cfg.get("SIGMA2", 0.0025)),
             tls_k=int(cfg.get("K", 8)),
             cell=cell,
+            field=warm,
         )
 
+    def output_stats(self, segmentation_label, ground_mask, sequence_id, log_dir):
+        """Write and return the removal's precision and coverage for one
+        sequence (Waymo labels: 1..7 foreground, >= 17 ground)."""
+        os.makedirs(log_dir, exist_ok=True)
+        seg = np.asarray(segmentation_label)
+        gm = np.asarray(ground_mask)
+        rm_fg = int(((seg[gm] > 0) & (seg[gm] <= 7)).sum())
+        rm_gd = int((seg[gm] >= 17).sum())
+        rm = int(gm.sum())
+        fg = int(((seg > 0) & (seg <= 7)).sum())
+        gd = int((seg >= 17).sum())
+        stats = dict(
+            num_removed_points=rm,
+            num_removed_foreground=rm_fg,
+            num_removed_ground=rm_gd,
+            ground_precision=rm_gd / (rm + 1e-6),
+            ground_coverage=rm_gd / (gd + 1e-6),
+            foreground_precision=rm_fg / (rm + 1e-6),
+            foreground_coverage=rm_fg / (fg + 1e-6),
+        )
+        with open(os.path.join(log_dir, f"{sequence_id}.txt"), "w") as f:
+            f.write(f"{dict(self.model_cfg)}\n")
+            f.write(f"#removed_points={rm}\n")
+            f.write(f"#removed_foreground={rm_fg}\n")
+            f.write(f"#removed_ground={rm_gd}\n")
+            f.write(f"ground_precision={stats['ground_precision']:.6f}\n")
+            f.write(f"ground_coverage={stats['ground_coverage']:.6f}\n")
+            f.write(f"foreground_precision={stats['foreground_precision']:.6f}\n")
+            f.write(f"foreground_coverage={stats['foreground_coverage']:.6f}\n")
+        return stats
+
     def __call__(self, seq_dict):
-        out = self._solve(np.asarray(seq_dict["point_fxyz"]))
+        cfg = self.model_cfg
+        sequence_id = str(seq_dict["frame_id"])[:-4] if "frame_id" in seq_dict else "seq"
+        path = os.path.join(cfg.DIR, sequence_id) if "DIR" in cfg else None
+        npz = os.path.join(path, "pillar_height.npz") if path else None
+        warm = None
+        if npz and os.path.exists(npz):
+            with np.load(npz) as f:
+                warm = {k: f[k] for k in ("pillar_height", "pillar_min_z")}
+        out = self._solve(np.asarray(seq_dict["point_fxyz"]), warm)
+        if npz and warm is None:
+            os.makedirs(path, exist_ok=True)
+            np.savez(npz, pillar_height=out["pillar_height"].cpu().numpy(),
+                     pillar_min_z=out["pillar_min_z"].cpu().numpy())
         height = out["point_height"].cpu().numpy()
         seq_dict["point_height"] = height
         seq_dict["point_horizon"] = out["point_horizon"].cpu().numpy()
         seq_dict["point_error"] = out["point_error"].cpu().numpy()
-        heights = self.model_cfg.get("TRUNCATE_HEIGHT", [0.5])
+        heights = cfg.get("TRUNCATE_HEIGHT", [0.5])
+        if "segmentation_label" in seq_dict and "LOG_DIR" in cfg:
+            for h in heights:
+                self.output_stats(seq_dict["segmentation_label"], height < h, sequence_id,
+                                  os.path.join(cfg.LOG_DIR, f"height{h}"))
         # the final mask uses the last height, like the reference
         keep = ~(height < heights[-1])
         seq_dict["full_point_keep0"] = height > 0.0

@@ -8,11 +8,17 @@ the 0.05 m/frame moving threshold. ``scene_dict`` is its pipeline input
 dict and ``scene_batch`` a collated SimpleReg batch of such sequences.
 ``make_rigid_scene`` (a copy of tests/test_registration_oracle.py's) is a
 two-frame registration problem with a known rigid motion per cluster.
+``write_waymo_sequence`` writes such a scene to disk in the layout that
+``datasets.WaymoDataset`` reads.
 """
 
 from __future__ import annotations
 
+import pickle
+from pathlib import Path
+
 import numpy as np
+import torch
 
 
 def make_scene(num_frames=20, points_per_frame=90_000, seed=0, moving_fraction=0.5):
@@ -126,3 +132,53 @@ def make_rigid_scene(seed, C=5, per=60, rot_deg=8.0, trans=0.4):
     moving = np.concatenate([p for p, _ in pts]).astype(np.float32)
     ref = np.concatenate([q for _, q in pts]).astype(np.float32)
     return moving, np.concatenate(comp).astype(np.int32), ref, np.stack(gt_T)
+
+
+def write_waymo_sequence(root, frames, gt, name, processed_data_tag="waymo_processed_data_v0_5_0"):
+    """Write a ``make_scene`` sequence (``frames`` [N, 4] (frame, x, y, z),
+    ``gt`` its box dict) as the Waymo sequence ``name`` under ``root``, in
+    the layout of ``tools/create_waymo_infos.py``:
+
+      <root>/<processed_data_tag>/<name>/NNNN.npy      [n, 8] float32: x, y, z
+          and zeros for intensity, elongation, range, rimage_w, rimage_h
+      <root>/<processed_data_tag>/<name>/NNNN_seg.npy  [n, 2] int64
+          (instance, class): a point inside a GT box gets the box's track id
+          and class 1 (Vehicle), every other point -1 and 18 (ground)
+      <root>/<processed_data_tag>/<name>/<name>.pkl    one info dict a frame:
+          point_cloud, frame_id "<name>_<idx:03d>", identity pose, and annos
+          (name, gt_boxes_lidar, obj_ids, num_points_in_gt)
+
+    Returns the sequence directory."""
+    from .ops.boxes import points_in_boxes
+
+    seq_dir = Path(root) / processed_data_tag / name
+    seq_dir.mkdir(parents=True, exist_ok=True)
+    fid = frames[:, 0].astype(np.int64)
+    infos = []
+    for f in range(int(fid.max()) + 1):
+        xyz = frames[fid == f, 1:4].astype(np.float32)
+        b = np.nonzero(gt["gt_box_frame"] == f)[0]
+        boxes = gt["gt_box_attr"][b].astype(np.float32)
+        tracks = gt["gt_box_track_label"][b]
+        inside = points_in_boxes(torch.as_tensor(xyz), torch.as_tensor(boxes)).numpy()  # [B, n]
+        in_any = inside.any(0)
+        seg = np.stack([np.where(in_any, tracks[inside.argmax(0)], -1),
+                        np.where(in_any, 1, 18)], axis=1).astype(np.int64)
+        pts = np.zeros((len(xyz), 8), np.float32)
+        pts[:, :3] = xyz
+        np.save(seq_dir / ("%04d.npy" % f), pts)
+        np.save(seq_dir / ("%04d_seg.npy" % f), seg)
+        infos.append(dict(
+            point_cloud=dict(lidar_sequence=name, sample_idx=f),
+            frame_id=f"{name}_{f:03d}",
+            pose=np.eye(4),
+            annos=dict(
+                name=np.asarray(["Vehicle"] * len(b)),
+                gt_boxes_lidar=boxes,
+                obj_ids=np.asarray([f"obj_{t}" for t in tracks]),
+                num_points_in_gt=inside.sum(1).astype(np.int64),
+            ),
+        ))
+    with open(seq_dir / f"{name}.pkl", "wb") as fo:
+        pickle.dump(infos, fo)
+    return seq_dir

@@ -295,3 +295,46 @@ def test_cuda_register_to_next_frame_matches_cpu(cuda_device, deterministic, per
     for k in (1, 2, 4, 8):
         np.testing.assert_allclose(run(cuda_device, k)[0], run(torch.device("cpu"), k)[0],
                                    atol=1e-3, err_msg=f"after {k} iterations")
+
+
+@pytest.mark.cuda
+def test_cuda_knn_proposal_matches_cpu(cuda_device):
+    """ClusterProposal(CC_GRAPH="knn") on the card: the hash-grid neighbour
+    table and the min-label propagation are exact (a scatter-min has no
+    rounding), so every point's component label equals the CPU's."""
+    from pcseqlearning_tpu_torch.pipeline import BENCH
+    from pcseqlearning_tpu_torch.preprocessing import ClusterProposal
+    from pcseqlearning_tpu_torch.scene import scene_dict
+
+    d = scene_dict(12, 6000, seed=3)
+    d["point_fxyz"] = d["point_fxyz"][d["point_fxyz"][:, 3] > 0.3]
+    d["point_sweep"] = d["point_fxyz"][:, 0].astype(np.int64)
+    cfg = dict(BENCH["proposal"], CC_GRAPH="knn")
+    outs = [ClusterProposal(cfg, device=dev)(dict(d)) for dev in (cuda_device, "cpu")]
+    for key in cfg["COMPONENT_KEYS"]:
+        np.testing.assert_array_equal(outs[0][f"point_{key}"], outs[1][f"point_{key}"])
+    np.testing.assert_array_equal(outs[0]["point_pred_box_id"], outs[1]["point_pred_box_id"])
+
+
+@pytest.mark.cuda
+def test_cuda_ground_warm_start_matches_cpu(cuda_device, tmp_path):
+    """The ground stage from a stored height field (DIR) on the card: the
+    voxel means are atomic sums on the card, so heights agree to float32
+    rounding (1e-5 m) and the horizon flags exactly."""
+    from pcseqlearning_tpu_torch.pipeline import PARITY
+    from pcseqlearning_tpu_torch.preprocessing import GroundPlaneRemover
+    from pcseqlearning_tpu_torch.scene import scene_dict
+
+    d = scene_dict(6, 8000, seed=5, frame_id="segment-2_005")
+    cfg = dict(PARITY["ground"], DIR=str(tmp_path))
+    GroundPlaneRemover(cfg, device="cpu")(dict(d))  # writes the field
+    npz = tmp_path / "segment-2" / "pillar_height.npz"
+    with np.load(npz) as f:
+        shapes = {k: f[k].shape for k in f.files}
+    rng = np.random.RandomState(0)
+    np.savez(npz, **{k: (rng.randn(*s) * 0.3).astype(np.float32) for k, s in shapes.items()})
+    outs = [GroundPlaneRemover(cfg, device=dev)(dict(d)) for dev in (cuda_device, "cpu")]
+    np.testing.assert_allclose(outs[0]["full_point_height"], outs[1]["full_point_height"],
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(outs[0]["full_point_horizon"], outs[1]["full_point_horizon"])
+    np.testing.assert_allclose(outs[0]["point_error"], outs[1]["point_error"], rtol=0, atol=1e-5)

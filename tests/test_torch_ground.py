@@ -138,6 +138,13 @@ def test_ground_stage_masks_match_jax():
     np.testing.assert_array_equal(out["full_point_keep0"], ht > 0)
 
 
-def test_ground_rejects_unported_keys():
-    with pytest.raises(ValueError):
-        tg.GroundPlaneRemover(dict(PARITY["ground"], DIR="/nonexistent"), device="cpu")
+def test_ground_rejects_unported_keys(tmp_path):
+    """DIR and LOG_DIR, once rejected, are ported: the stage takes them and
+    writes the warm-start file and one stat file per TRUNCATE_HEIGHT
+    (tests/test_torch_artifacts.py holds both to the JAX package's)."""
+    cfg = dict(PARITY["ground"], DIR=str(tmp_path / "h"), LOG_DIR=str(tmp_path / "log"))
+    d = scene_dict(3, 2000, seed=2, frame_id="segment-1_002")
+    d["segmentation_label"] = np.full(len(d["point_fxyz"]), 18, np.int64)
+    tg.GroundPlaneRemover(cfg, device="cpu")(d)
+    assert (tmp_path / "h" / "segment-1" / "pillar_height.npz").is_file()
+    assert (tmp_path / "log" / "height0.5" / "segment-1.txt").is_file()
