@@ -67,11 +67,34 @@ host cost.
                  bit for bit to its plain version on the inputs this run gave
                  it (pair_min's and radius_scan's largest calls, and every
                  cc_round round of the largest chunk at each of the config's
-                 radii, 1.25, 0.75 and 0.25 m); then the same command again,
-                 which must skip the sequence
+                 radii, 1.25, 0.75 and 0.25 m); then the same command into a
+                 fresh output directory, whose artifacts (all.pkl, the
+                 per-frame pickles, pillar_height.npz, the ground stat file)
+                 must equal the first run's bit for bit: the card's sums are
+                 reproducible; then the same command again, which must skip
+                 the sequence
              (b) ground removal and ClusterProposal(CC_GRAPH="knn") on the
                  golden scene on the card: proposal_miou and num_components
                  within GOLDEN's rows (GOLDEN was pinned on this path)
+  7. detector CenterPoint as tools/cfgs/waymo_models/centerpoint.yaml's MODEL
+             builds it, at full widths, TF32 off and cuDNN deterministic
+             (the flags printed):
+             (a) one training step on the card against the port on the CPU,
+                 on +-19.2 m with 2 x 20,000 points and a 30,000-voxel cap
+                 (range, points and cap cut so the CPU side takes seconds):
+                 voxel table exact, losses and batch statistics, and in
+                 float64 every gradient (see detector_phase for the float32
+                 gradients' bound)
+             (b) bench.py's bench_detector cell: 2 x 160,000 points from
+                 RandomState(0), a 120,000-voxel cap, the +-74.88 m Waymo
+                 grid, Adam 1e-3; a first step under torch's FLOP counter,
+                 then 8 steps, each reading center_loss to the host: steps/s
+                 (median step but the first), points/s, peak memory, FLOPs
+                 per step, MFU against the 67 TFLOP/s float32 peak, the
+                 losses (finite and falling), and the three kernels'
+                 launches in the phase (none: the detector runs none);
+                 then two steps again from the same seed, equal to the
+                 first two bit for bit (losses, gradients, parameters)
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -85,7 +108,6 @@ itself without a card.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -643,20 +665,25 @@ def entry_phase(repo, dev, size, sync, kernels, rehearse):
         log(f"# entry: wrote {size[0]} frames x {size[1]} points in "
             f"{time.perf_counter() - t0:.1f} s (the bench scene's width; depth cut from 100 to "
             f"{size[0]} frames)")
+        def argv_for(out):
+            """The README command, its stages' DIR / LOG_DIR / SAVE_DIR
+            under ``out``."""
+            dirs = {"MODEL.SAVE_DIR": out / "tracking", "MODEL.PREPROCESSORS.0.DIR": out / "height",
+                    "MODEL.PREPROCESSORS.0.LOG_DIR": out / "log",
+                    "MODEL.PREPROCESSORS.1.DIR": out / "proposal",
+                    "MODEL.PREPROCESSORS.2.DIR": out / "tracking"}
+            argv = [str(repo / c) for c in README_CFGS] + [
+                "--device", dev.type, "--set", "DATA_CONFIG.DATA_PATH", root, "ROOT_DIR", root]
+            for k, v in dirs.items():
+                argv += [k, str(v)]
+            return argv
+
         out = Path(root) / "out"
-        dirs = {"MODEL.SAVE_DIR": out / "tracking", "MODEL.PREPROCESSORS.0.DIR": out / "height",
-                "MODEL.PREPROCESSORS.0.LOG_DIR": out / "log",
-                "MODEL.PREPROCESSORS.1.DIR": out / "proposal",
-                "MODEL.PREPROCESSORS.2.DIR": out / "tracking"}
-        argv = [str(repo / c) for c in README_CFGS] + [
-            "--device", dev.type, "--set", "DATA_CONFIG.DATA_PATH", root, "ROOT_DIR", root]
-        for k, v in dirs.items():
-            argv += [k, str(v)]
         stages = [(GroundPlaneRemover, "ground"), (ClusterProposal, "proposal"),
                   (ClusterTracking, "tracking")]
 
-        def run_main():
-            """train.main(argv) with each stage's seconds (between
+        def run_main(out):
+            """train.main on ``out``'s argv with each stage's seconds (between
             synchronizes), the points each processed sequence kept after
             SUBSAMPLE, its components per key, and the kernels' launches."""
             split, seqs, comps = defaultdict(float), [], {}
@@ -677,7 +704,7 @@ def entry_phase(repo, dev, size, sync, kernels, rehearse):
                 fn.launches = 0
             t0 = time.perf_counter()
             try:
-                model = train.main(argv)
+                model = train.main(argv_for(out))
                 sync()
             finally:
                 SimpleReg.process_sequence = process
@@ -690,7 +717,7 @@ def entry_phase(repo, dev, size, sync, kernels, rehearse):
             torch.cuda.reset_peak_memory_stats()
         recs = path_recorders(sg, tb_mod, cc_by_radius=True)
         try:
-            model, wall, split, seqs, comps, launches = run_main()
+            model, wall, split, seqs, comps, launches = run_main(out)
         finally:
             for r in recs.values():
                 r.restore()
@@ -721,7 +748,18 @@ def entry_phase(repo, dev, size, sync, kernels, rehearse):
         if [f for f in need if f not in files]:
             errs.append(f"entry: missing files {[f for f in need if f not in files]}")
 
-        _, wall, split, seqs, _, launches = run_main()  # the same command again: a skip
+        # the same command into a fresh directory: the card's sums are
+        # reproducible, so every artifact must equal the first run's
+        out2 = Path(root) / "out_again"
+        _, wall2, split2, _, _, _ = run_main(out2)
+        diffs, n_checked = compare_artifacts(out, out2)
+        log(f"# entry again (fresh output directory): main() {wall2:.3f} s, stages "
+            f"{json.dumps({k: round(v, 3) for k, v in split2.items()})}; {n_checked} artifacts "
+            f"compared, {len(diffs)} differ {diffs[:8]}")
+        if diffs or not n_checked:
+            errs.append(f"entry: a second run of the same command wrote other artifacts: {diffs}")
+
+        _, wall, split, seqs, _, launches = run_main(out)  # the same command again: a skip
         pipe = sum(split.values())
         log(f"# entry rerun: main() {wall:.3f} s (loading the sequence and SUBSAMPLE "
             f"included), pipeline {pipe:.3f} s, sequences processed {len(seqs)}, "
@@ -730,6 +768,54 @@ def entry_phase(repo, dev, size, sync, kernels, rehearse):
             errs.append(f"the rerun did not skip the sequence ({len(seqs)} processed, "
                         f"{pipe:.3f} s of pipeline)")
     return errs, kernel_errs
+
+
+def _equal(a, b):
+    """Bit equality of two loaded artifacts (nested dicts, lists, NumPy
+    arrays, scalars); NaNs equal NaNs in the same places."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_equal, a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b, equal_nan=a.dtype.kind in "fc"))
+    return a == b or (a != a and b != b)
+
+
+def compare_artifacts(out_a, out_b):
+    """The files two runs of the README command wrote under ``out_a`` and
+    ``out_b``: the same names, pickles (all.pkl, per-frame tables) and npz
+    arrays equal bit for bit, text files (the stage stat files) equal once
+    the output path is replaced. Returns (differing files, files compared)."""
+    import pickle
+
+    import numpy as np
+
+    def files(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+    names = files(out_a)
+    if names != files(out_b):
+        return [f"file lists {names} / {files(out_b)}"], 0
+    diffs = []
+    for name in names:
+        a, b = out_a / name, out_b / name
+        if name.endswith(".pkl"):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same = _equal(pickle.load(fa), pickle.load(fb))
+        elif name.endswith(".npz"):
+            with np.load(a) as za, np.load(b) as zb:
+                same = _equal(dict(za), dict(zb))
+        else:
+            same = a.read_text().replace(str(out_a), str(out_b)) == b.read_text()
+        if not same:
+            diffs.append(name)
+    return diffs, len(names)
 
 
 def knn_proposal_phase(dev, size, sync):
@@ -757,10 +843,198 @@ def knn_proposal_phase(dev, size, sync):
             for k, v in stats.items() if abs(v - GOLDEN[k][0]) > GOLDEN[k][1]]
 
 
+def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
+    """Phase 7: CenterPoint as centerpoint.yaml's MODEL builds it (full
+    widths), TF32 off and cuDNN restricted to its deterministic algorithms
+    (torch.backends.cudnn.deterministic: its default backward algorithms add
+    in a run-to-run order). (a) one training forward and backward on the
+    card against the port on the CPU, same seeded weights and batch: voxel
+    table exact; float32 losses to 1e-4 relative and new batch statistics
+    to 1e-5; in float64 (on the float32 voxel table) losses to 1e-4, every
+    gradient to 1e-3 of its tensor's max |g| and batch statistics to 1e-5.
+    The float32 gradients are not held to 1e-3: at these widths the float32
+    backward itself is 1-6% of a tensor's max |g| from float64 (the error
+    is born where the BEV blocks' last BatchNorm, ReLU, deblock and deblock
+    BatchNorm meet; JAX's float32 backward is as far, see PERF.md), so the
+    card's float32 gradients must lie within 4e-2 of each tensor's max |g|
+    of the CPU's float64 ones (2.26e-2 measured on an H100); the record
+    gives that error for every conv kernel, on the card and on the CPU.
+    (b) bench_detector's cell: its batch, voxel cap and geometry, Adam
+    1e-3, a FLOP-counted first step and 8 timed steps, each reading
+    center_loss to the host; then the first two steps again from the same
+    seed, whose losses, gradients and parameters must equal the first
+    run's bit for bit. Returns failures."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, init_train_state,
+                                                             make_train_step)
+    from pcseqlearning_tpu_torch.scene import DETECTOR_CFG, bench_detector_batch
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    log(f"# detector: torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32} (float32 throughout), "
+        f"torch.backends.cudnn.deterministic {torch.backends.cudnn.deterministic}")
+    cfg = cfg_from_yaml_file(str(repo / DETECTOR_CFG), EDict())
+    classes = list(cfg.CLASS_NAMES)
+    (a_extent, a_points, a_cap), (b_extent, b_points, b_cap, b_batch, b_steps) = sizes
+    errs = []
+
+    # ---- (a) card against CPU
+    runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-a_extent, -a_extent, -2.0, a_extent, a_extent,
+                                                   4.0], "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                   class_names=classes, voxel_cap=a_cap)
+    batch = bench_detector_batch(2, a_points, a_extent - 0.5, seed=1)
+
+    def one_step(device, dtype=torch.float32):
+        """One training forward and backward from the seeded weights; the
+        voxel table is always the float32 one, then the network runs in
+        ``dtype``."""
+        model = build_network(cfg.MODEL, runtime, device=device).to(dtype)
+        model.train()
+        bd = model.vfe(_flatten_local(**{k: torch.as_tensor(v).to(device)
+                                         for k, v in batch.items()}))
+        bd = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+              for k, v in bd.items()}
+        for module in (model.backbone_3d, model.map_to_bev, model.backbone_2d, model.dense_head):
+            bd = module(bd)
+        losses = model.dense_head.loss(bd)
+        losses["center_loss"].backward()
+        return (bd["voxel_coords"].cpu(), bd["voxel_valid"].cpu(),
+                {k: float(v.detach()) for k, v in losses.items()},
+                {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+                {n: b.double().cpu() for n, b in model.named_buffers()})
+
+    def errs_of(a, b):
+        """(losses relative, gradients of each tensor's max |g|, buffers
+        absolute): the largest error of run ``a`` against run ``b``."""
+        return (max(abs(a[2][k] / v - 1) for k, v in b[2].items()),
+                {n: float((a[3][n] - g).abs().max() / max(float(g.abs().max()), 1e-30))
+                 for n, g in b[3].items()},
+                max(float((a[4][n] - v).abs().max()) for n, v in b[4].items()))
+
+    t0 = time.perf_counter()
+    card, card64 = one_step(dev), one_step(dev, torch.float64)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, cpu64 = one_step(torch.device("cpu")), one_step(torch.device("cpu"), torch.float64)
+    t_cpu = time.perf_counter() - t0
+    loss_err, grad_err, stat_err = errs_of(card, cpu)
+    loss64, grad64, stat64 = errs_of(card64, cpu64)
+    card_vs64, cpu_vs64 = errs_of(card, cpu64)[1], errs_of(cpu, cpu64)[1]
+    kernels_of = [n for n in cpu_vs64 if n.endswith("weight") and "bn" not in n]
+    rec = dict(range_m=a_extent, points=[2, a_points], voxel_cap=a_cap,
+               voxels=int(card[1].sum()), voxel_table_equal=bool(
+                   torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])),
+               losses_card=card[2], losses_cpu=cpu[2], loss_rel_err=loss_err,
+               batch_stats_abs_err=stat_err, grad_err_of_max=max(grad_err.values()),
+               fp64=dict(loss_rel_err=loss64, grad_err_of_max=max(grad64.values()),
+                         batch_stats_abs_err=stat64),
+               fp32_grad_err_of_max_against_cpu_fp64=dict(
+                   card=max(card_vs64.values()), cpu=max(cpu_vs64.values()), limit=4e-2,
+                   conv_kernels={n.rsplit(".", 1)[0]: [float(f"{card_vs64[n]:.3g}"),
+                                                       float(f"{cpu_vs64[n]:.3g}")]
+                                 for n in kernels_of}),
+               seconds_card=t_card, seconds_cpu=t_cpu)
+    log(f"# detector card vs cpu {json.dumps(rec)}")
+    if not rec["voxel_table_equal"]:
+        errs.append("detector: the card's voxel table differs from the CPU's")
+    if not (loss_err <= 1e-4 and stat_err <= 1e-5):
+        errs.append(f"detector card vs cpu (float32): loss {loss_err:.2e} (1e-4), batch stats "
+                    f"{stat_err:.2e} (1e-5)")
+    if not (loss64 <= 1e-4 and max(grad64.values()) <= 1e-3 and stat64 <= 1e-5):
+        errs.append(f"detector card vs cpu (float64): loss {loss64:.2e} (1e-4), grad "
+                    f"{max(grad64.values()):.2e} (1e-3 of max), batch stats {stat64:.2e} (1e-5)")
+    if not max(card_vs64.values()) <= 4e-2:
+        errs.append(f"detector: the card's float32 gradients are {max(card_vs64.values()):.2e} "
+                    f"of a tensor's max |g| from the CPU's float64 ones (4e-2)")
+
+    # ---- (b) bench_detector's cell
+    runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-b_extent, -b_extent, -2.0, b_extent, b_extent,
+                                                   4.0], "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                   class_names=classes, voxel_cap=b_cap)
+    batch = bench_detector_batch(b_batch, b_points, 70.0 if b_extent > 70 else b_extent - 0.5)
+    dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    for fn in kernels.values():
+        fn.launches = 0
+    state = init_train_state(build_network(cfg.MODEL, runtime, device=dev), device=dev)
+    with torch.no_grad():
+        vox = state.model.vfe(_flatten_local(**dev_batch))
+        vb = vox["voxel_coords"][vox["voxel_valid"]][:, 0]
+        voxels = [int((vb == b).sum()) for b in range(b_batch)]
+        del vox, vb
+    step = make_train_step(loss_key="center_loss", device=dev)
+
+    def after_two_steps(state):
+        """The losses of the first two steps, and the gradients and
+        parameters after the second."""
+        return ([{k: float(v) for k, v in ls.items()} for ls in two_losses],
+                {n: p.grad.clone() for n, p in state.model.named_parameters()},
+                {n: p.detach().clone() for n, p in state.model.named_parameters()})
+
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        state, losses = step(state, dev_batch)
+    two_losses = [losses]
+    loss_seq = [float(losses["center_loss"])]
+    first_s = time.perf_counter() - t0
+    flops = float(counter.get_total_flops())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    durs = []
+    t_prev = time.perf_counter()
+    for i in range(b_steps):
+        state, losses = step(state, dev_batch)
+        loss_seq.append(float(losses["center_loss"]))  # a host read each step, as bench.py
+        now = time.perf_counter()
+        durs.append(now - t_prev)
+        if i == 0:
+            two_losses.append(losses)
+            first_run = after_two_steps(state)
+        t_prev = now
+    dt = sorted(durs[1:] or durs)[len(durs[1:] or durs) // 2]
+    steps_per_s = 1.0 / dt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    state = init_train_state(build_network(cfg.MODEL, runtime, device=dev), device=dev)
+    two_losses = []
+    for _ in range(2):
+        state, losses = step(state, dev_batch)
+        two_losses.append(losses)
+    again = after_two_steps(state)
+    differing = [n for n in first_run[1] if not (torch.equal(first_run[1][n], again[1][n])
+                                                 and torch.equal(first_run[2][n], again[2][n]))]
+    repeats = first_run[0] == again[0] and not differing
+    del state, first_run, again
+    rec = dict(cell="bench_detector", gpu=gpu_line, points=[b_batch, b_points], voxel_cap=b_cap,
+               range_m=b_extent, steps=b_steps, first_step_s=first_s, step_s=durs,
+               steps_per_s=steps_per_s, points_per_s=steps_per_s * b_batch * b_points,
+               points_per_s_is="bench.py's: every point of the batch, in a kept voxel or not",
+               voxels_per_s=steps_per_s * sum(voxels),
+               peak_gb=peak_gb, losses=loss_seq, first_loss=loss_seq[0], last_loss=loss_seq[-1],
+               grad_norm=float(losses["grad_norm"]), flops_per_step=flops,
+               flop_count="torch.utils.flop_counter over the first step (matmuls, convolutions)",
+               mfu=flops * steps_per_s / PEAK_FP32_FLOPS if dev.type == "cuda" else None,
+               mfu_peak="67 TFLOP/s float32, TF32 off (H100 SXM data sheet, 700 W)",
+               voxels_per_sample=voxels, two_steps_repeat_bit_for_bit=repeats,
+               tensors_differing_on_repeat=differing[:5],
+               launches={name: fn.launches for name, fn in kernels.items()})
+    log(f"# detector {json.dumps(rec)}")
+    if not (all(np.isfinite(loss_seq)) and loss_seq[-1] < loss_seq[0]):
+        errs.append(f"detector: losses {loss_seq} not finite and falling")
+    if not repeats:
+        errs.append(f"detector: two steps from the same seed do not repeat bit for bit "
+                    f"(gradients or parameters differ in {differing[:5]})")
+    return errs
+
+
 def main():
-    # cuBLAS keeps a fixed workspace, so that phase 5's matrix products are
-    # reproducible too (read when the first cuBLAS handle is made)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     t_start = time.perf_counter()
@@ -775,6 +1049,7 @@ def main():
         gpu_line, dev = "cpu rehearsal", torch.device("cpu")
         golden_size, bench_size, fixed_c = (6, 2500), (10, 2500), 16
         walk_size, rigid_sizes, entry_size = (10, 2500), (60, 400), (4, 600)
+        detector_sizes = (3.2, 500, 1024), (3.2, 500, 1024, 2, 3)
 
         def sync():
             pass
@@ -782,6 +1057,9 @@ def main():
         gpu_line, dev = smi("name,power.limit"), torch.device("cuda")
         golden_size, bench_size, fixed_c = (12, 20_000), (100, 90_000), 2048
         walk_size, rigid_sizes, entry_size = (24, 90_000), (60, 4000), (24, 90_000)
+        # 7(a): the range cut to +-19.2 m and 2 x 20,000 points, so the CPU
+        # side takes seconds; 7(b): bench_detector's cell
+        detector_sizes = (19.2, 20_000, 30_000), (74.88, 160_000, 120_000, 2, 8)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -987,11 +1265,8 @@ def main():
         f"{'cpu rehearsal' if rehearse else smi('clocks.sm,clocks.max.sm,power.draw')}")
 
     # ---- 5. the other walks and registration ---------------------------------
-    # PyTorch's deterministic algorithms (atomic-free index_add_ and friends):
-    # the walks are chaotic, and phase 5(a)'s box fractions moved by 0.04
-    # between two otherwise identical runs, so its bounds are checked on a
-    # reproducible run (the kernels above are timed without it)
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the port's default path: its float sums on the card are reproducible
+    # (ops/segment_ops.py), so the chaotic walks repeat bit for bit
     t0 = time.perf_counter()
     walk_phase(dev, walk_size, sync, kernels, rehearse)
     log(f"# phase 5(a): {time.perf_counter() - t0:.1f} s")
@@ -1001,7 +1276,6 @@ def main():
     t0 = time.perf_counter()
     errs += registration_phase(dev, rigid_sizes)
     log(f"# phase 5(c): {time.perf_counter() - t0:.1f} s")
-    torch.use_deterministic_algorithms(False)
     if errs and not rehearse:
         fail("; ".join(errs))
 
@@ -1014,6 +1288,13 @@ def main():
     t0 = time.perf_counter()
     errs += knn_proposal_phase(dev, golden_size, sync)
     log(f"# phase 6(b): {time.perf_counter() - t0:.1f} s")
+    if errs and not rehearse:
+        fail("; ".join(errs))
+
+    # ---- 7. the detector -------------------------------------------------------
+    t0 = time.perf_counter()
+    errs = detector_phase(repo, dev, gpu_line, kernels, rehearse, detector_sizes)
+    log(f"# phase 7: {time.perf_counter() - t0:.1f} s")
     if errs and not rehearse:
         fail("; ".join(errs))
 

@@ -52,3 +52,50 @@ def config_from_jax(cfg, env=os.environ, jax_backend="tpu"):
         cell_cap = int(out.get("CELL_CAP", env.get("PCSEQ_CELL_CAP", 48)))
         out.setdefault("CC_CELL_CAP", min(cell_cap, int(env.get("PCSEQ_CELL_CAP", 24))))
     return out
+
+
+# flax module names -> the port's module names (layer names the two share,
+# BaseBEVBackbone's and the backbones', are not listed)
+_FLAX_NAMES = {"MaskedBatchNorm_0": "bn", "SubMConvBlock_0": "conv0", "SubMConvBlock_1": "conv1",
+               "BatchNorm2d_0": "shared_bn", "Conv_0": "shared_conv", "Conv_1": "hm",
+               "Conv_2": "center", "Conv_3": "center_z", "Conv_4": "dim", "Conv_5": "rot"}
+_FLAX_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
+                ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
+                ("batch_stats", "var"): "running_var"}
+
+
+def _flat_leaves(tree, prefix=()):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def detector_params_from_flax(variables):
+    """A JAX detector's flax ``variables`` ({"params": ..., "batch_stats":
+    ...}, leaves as NumPy arrays) -> the port's state_dict, every leaf taken
+    exactly once.
+
+    Layouts: sparse conv kernels stay [K, Cin, Cout] (offsets in
+    ``itertools.product`` (dz, dy, dx) order); flax Conv kernels (H, W, in,
+    out) become torch's (out, in, H, W); flax ConvTranspose kernels (u, u,
+    in, out) become torch's (in, out, u, u) flipped in both spatial axes,
+    since flax's transposed conv (``transpose_kernel=False``) does not flip
+    its kernel and torch's does (with kernel = stride = 2, flax's output at
+    2i + a takes K[1 - a], torch's W[a])."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for path, leaf in _flat_leaves(variables):
+        coll, *mods, name = path
+        key = ".".join([_FLAX_NAMES.get(m, m) for m in mods] + [_FLAX_LEAVES[(coll, name)]])
+        a = np.asarray(leaf)
+        if name == "kernel" and a.ndim == 4:
+            transposed = mods[-1].startswith("deblock") and a.shape[0] > 1
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1) if transposed else a.transpose(3, 2, 0, 1)
+        if key in out:
+            raise ValueError(f"two flax leaves map to {key!r}")
+        out[key] = torch.tensor(np.ascontiguousarray(a))
+    return out

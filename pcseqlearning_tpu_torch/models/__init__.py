@@ -1,6 +1,7 @@
 """Model registry (counterpart of pcseqlearning_tpu.models): ``build_network``
 dispatches on MODEL.NAME. The port has the extraction pipeline's entry model,
-``SimpleReg``; the detectors are not ported yet."""
+``SimpleReg``, and the CenterPoint detector; the other detectors are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -11,5 +12,9 @@ def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
         from ..preprocessing import SimpleReg
 
         return SimpleReg(model_cfg, runtime_cfg, dataset, device=device)
+    if name == "CenterPoint":
+        from .detectors import build_detector
+
+        return build_detector(model_cfg, runtime_cfg, device=device)
     raise NotImplementedError(f"build_network: the detector {name!r} is not ported yet "
-                              "(ROADMAP.md §2, detector slice)")
+                              "(ROADMAP.md, queue 1 item 4)")

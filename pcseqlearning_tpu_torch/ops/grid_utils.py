@@ -66,3 +66,32 @@ def grid_subsample_indices(points_bxyz, voxel_size):
     inverse, num_voxels, _ = unique_rows(voxel_coords(points_bxyz, voxel_size))
     rep = segment_ops.segment_max_or(torch.arange(n, device=points_bxyz.device), inverse, n, -1)
     return rep, rep >= 0, inverse, num_voxels
+
+
+def dynamic_voxelize(points_bxyz, features, voxel_size, pc_range_min, num_voxels_cap):
+    """Dynamic voxelization: the mean feature of every occupied voxel, no
+    cap on the points per voxel.
+
+    Voxels are numbered in lexicographic (b, cx, cy, cz) order; with more
+    than ``num_voxels_cap`` occupied voxels the first ``num_voxels_cap`` are
+    kept and the points of the others are dropped, as the JAX function's
+    ``segment_*`` calls drop ids at or above the cap.
+
+    Returns:
+        voxel_coords [cap, 4] int32 (b, cz, cy, cx), the spconv layout
+        voxel_feats  [cap, C] mean features
+        valid        [cap] bool
+        inverse      [N] int64, the voxel of each point (>= cap: dropped)
+    """
+    dev, dt = points_bxyz.device, points_bxyz.dtype
+    vs = torch.as_tensor(voxel_size, dtype=dt, device=dev)
+    origin = torch.as_tensor(pc_range_min, dtype=dt, device=dev)
+    b = torch.round(points_bxyz[:, 0]).to(torch.int32)
+    cxyz = torch.floor((points_bxyz[:, 1:4] - origin) / vs).to(torch.int32)
+    coords = torch.cat([b[:, None], cxyz], dim=1)
+    inverse, _, _ = unique_rows(coords)
+    cap = num_voxels_cap
+    feats = segment_ops.segment_mean(features, inverse, cap)
+    valid = segment_ops.segment_count(inverse, cap) > 0.5
+    vc = segment_ops.segment_min_or(coords, inverse, cap, 0)
+    return torch.stack([vc[:, 0], vc[:, 3], vc[:, 2], vc[:, 1]], dim=1), feats, valid, inverse

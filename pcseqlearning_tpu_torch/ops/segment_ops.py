@@ -2,9 +2,17 @@
 
 Same contract as ``jax.ops.segment_*``: ``num_segments`` fixes the output
 length and ids outside ``[0, num_segments)`` are dropped, so callers can
-route padding to a sink id. On the card these are ``index_add_`` /
-``scatter_reduce_`` (atomic adds: float sums may differ from the CPU in the
-last bits, run to run).
+route padding to a sink id.
+
+Float sums on the card give the same bits on every run of the same input:
+a CUDA ``index_add_`` adds with atomics in whatever order the threads
+arrive, and the extraction path's chaotic loops (the ground L1 solve, the
+walks) carry that order into their outputs. So a float ``segment_sum`` of a
+CUDA tensor sorts the rows by segment (stably, so each segment keeps its
+rows' order) and reduces the contiguous runs with ``torch.segment_reduce``,
+whose order of adds is a function of the input alone. The CPU keeps
+``index_add_`` (sequential, hence already reproducible). Integer sums and
+the min / max reductions commute exactly and keep their scatters.
 """
 
 from __future__ import annotations
@@ -16,11 +24,30 @@ def _in_range(segment_ids, num_segments):
     return (segment_ids >= 0) & (segment_ids < num_segments)
 
 
+def _sorted_segment_sum(data, segment_ids, num_segments):
+    """Sum of the rows of each segment (every id in range), atomic-free:
+    a stable sort by id, then one reduction per contiguous run."""
+    ids, order = torch.sort(segment_ids.long(), stable=True)
+    bounds = torch.searchsorted(ids, torch.arange(num_segments + 1, device=ids.device))
+    return torch.segment_reduce(data[order], "sum", lengths=bounds[1:] - bounds[:-1],
+                                axis=0, unsafe=True)
+
+
 def segment_sum(data, segment_ids, num_segments):
     ok = _in_range(segment_ids, num_segments)
+    if data.is_cuda and data.dtype.is_floating_point:
+        return _sorted_segment_sum(data[ok], segment_ids[ok], num_segments)
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, segment_ids[ok].long(), data[ok])
+
+
+def index_add(base, index, data):
+    """``base.index_add(0, index, data)`` (every index in range), with the
+    card's float sums made reproducible as ``segment_sum``'s are."""
+    if base.is_cuda and base.dtype.is_floating_point:
+        return base + _sorted_segment_sum(data, index, base.shape[0])
+    return base.index_add(0, index, data)
 
 
 def segment_count(segment_ids, num_segments, weights=None, dtype=torch.float32):

@@ -27,7 +27,7 @@ def _gd_loss_grad(v, moving_xyz, target, corr_ok, nbr, nbr_ok, rigid_weight):
     e = torch.where(nbr_ok[..., None], v[:, None, :] - v[nbr], zero)  # [N, K, 3]
     loss = (r * r).sum() + rigid_weight * (e * e).sum()
     g = 2.0 * r + (2.0 * rigid_weight) * e.sum(1)
-    g = g.index_add(0, nbr.reshape(-1), (-2.0 * rigid_weight) * e.reshape(-1, 3))
+    g = segment_ops.index_add(g, nbr.reshape(-1), (-2.0 * rigid_weight) * e.reshape(-1, 3))
     return loss, g
 
 

@@ -9,7 +9,8 @@ dict and ``scene_batch`` a collated SimpleReg batch of such sequences.
 ``make_rigid_scene`` (a copy of tests/test_registration_oracle.py's) is a
 two-frame registration problem with a known rigid motion per cluster.
 ``write_waymo_sequence`` writes such a scene to disk in the layout that
-``datasets.WaymoDataset`` reads.
+``datasets.WaymoDataset`` reads. ``bench_detector_batch`` is
+``bench.py::bench_detector``'s batch for ``DETECTOR_CFG`` (CenterPoint).
 """
 
 from __future__ import annotations
@@ -182,3 +183,26 @@ def write_waymo_sequence(root, frames, gt, name, processed_data_tag="waymo_proce
     with open(seq_dir / f"{name}.pkl", "wb") as fo:
         pickle.dump(infos, fo)
     return seq_dir
+
+
+DETECTOR_CFG = "tools/cfgs/waymo_models/centerpoint.yaml"
+
+
+def bench_detector_batch(batch_size, n_points, extent, seed=0):
+    """bench.py's detector batch (bench_detector): uniform points over
+    +-``extent`` m, z in [-1.5, 3.5], one feature, 64 car-sized GT boxes a
+    sample, all drawn from RandomState(seed) in bench.py's order."""
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((batch_size, n_points, 4), np.float32)
+    pts[..., 1] = rng.rand(batch_size, n_points) * 2 * extent - extent
+    pts[..., 2] = rng.rand(batch_size, n_points) * 2 * extent - extent
+    pts[..., 3] = rng.rand(batch_size, n_points) * 5 - 1.5
+    feats = rng.rand(batch_size, n_points, 1).astype(np.float32)
+    gt = np.zeros((batch_size, 64, 8), np.float32)
+    for b in range(batch_size):
+        gt[b, :, 0:2] = rng.rand(64, 2) * (2 * extent - 20) - (extent - 10)
+        gt[b, :, 2] = 1.0
+        gt[b, :, 3:6] = [4.5, 2.0, 1.8]
+        gt[b, :, 7] = rng.randint(1, 4, 64)
+    return dict(points=pts, feats=feats, valid=np.ones((batch_size, n_points), bool),
+                gt_boxes=gt)

@@ -17,8 +17,11 @@ SAVE_DIR paths are relative to the working directory, as in the JAX CLI.
 
 The run builds the training loader with BATCH_SIZE_PER_GPU and calls the
 model on every batch. ``--device`` defaults to ``cuda``, which raises
-without a card. Only ``MODEL.NAME: SimpleReg`` is ported; a detector config
-raises NotImplementedError.
+without a card. Only ``MODEL.NAME: SimpleReg`` runs here; a detector config
+raises NotImplementedError before anything is built: the port has the
+CenterPoint model and its train step (``models.build_network``,
+``parallel.train_step``) but not yet the detector training's data augmentor,
+voxel processor, one-cycle schedule and train loop.
 """
 
 from __future__ import annotations
@@ -68,6 +71,11 @@ def main(argv=None):
     """Run the CLI on ``argv`` (default: the command line); returns the
     model, whose stages hold the last sequence's state."""
     args, cfg = parse_config(argv)
+    if cfg.MODEL.NAME != "SimpleReg":
+        raise NotImplementedError(
+            f"train: detector training ({cfg.MODEL.NAME!r}) needs the data augmentor, the "
+            "voxel processor (transform_points_to_voxels), the one-cycle schedule and the "
+            "train loop, which are not ported yet (ROADMAP.md, queue 1 item 5)")
     device = resolve_device(args.device)
     if args.fix_random_seed:
         common_utils.set_random_seed(666)

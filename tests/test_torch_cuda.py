@@ -12,8 +12,14 @@ Tolerance: none for the kernels and the neighbour search. Each kernel
 rounds its distances like its plain version (no FMA contraction), and the
 search is elementwise PyTorch, so outputs must be equal. Registration on
 the card agrees with the CPU to 1e-3 after the same first iterations: its
-segment sums are atomic adds in another order, and its cross term a matrix
-product on another library.
+segment sums add in another order (a segmented reduction over sorted runs
+where the CPU adds row by row), and its cross term is a matrix product on
+another library. The card's segment sums give the same bits on every call.
+The sparse convs and the toy CenterPoint on the card equal the port on the
+CPU with TF32 off: features and losses to 1e-5 relative, gradients to 1e-4
+of each tensor's max |g| (float32 GEMMs blocked differently). With cuDNN
+restricted to its deterministic algorithms, two train steps of the
+full-width CenterPoint repeat bit for bit.
 """
 
 import numpy as np
@@ -259,24 +265,16 @@ def test_cuda_radius_neighbors_matches_cpu(cuda_device, k):
         assert ((d2[:, 1:] == d2[:, :-1]) & mask[:, 1:]).any()
 
 
-@pytest.fixture
-def deterministic():
-    """PyTorch's deterministic algorithms, as chip_smoke.py's phase 5 runs:
-    the card's atomic sums otherwise change from run to run."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    yield
-    torch.use_deterministic_algorithms(False)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("per,path", [(60, "brute"), (4000, "hash")])
-def test_cuda_register_to_next_frame_matches_cpu(cuda_device, deterministic, per, path):
+def test_cuda_register_to_next_frame_matches_cpu(cuda_device, per, path):
     """The rigid scene of tests/test_registration_oracle.py: 300 points take
     the brute-force correspondences, 20,000 the hash grid. The card equals
     the CPU after 1, 2, 4 and 8 iterations; a full run passes near-tied
     correspondences that last-bit differences (atomic sums, another matrix
     product) resolve the other way, and its loss countdown can stop a few
-    iterations apart, so full runs are held to the true motion."""
+    iterations apart, so full runs are held to the true motion. Two runs on
+    the card give the same bits."""
     m, c, ref, gt = make_rigid_scene(0, per=per, rot_deg=5.0, trans=0.3)
     n = len(m)
     args = (m, c, np.ones(n, bool), ref, np.ones(n, bool))
@@ -295,6 +293,8 @@ def test_cuda_register_to_next_frame_matches_cpu(cuda_device, deterministic, per
     for k in (1, 2, 4, 8):
         np.testing.assert_allclose(run(cuda_device, k)[0], run(torch.device("cpu"), k)[0],
                                    atol=1e-3, err_msg=f"after {k} iterations")
+    for a, b in zip(run(cuda_device, 40), run(cuda_device, 40)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda
@@ -338,3 +338,159 @@ def test_cuda_ground_warm_start_matches_cpu(cuda_device, tmp_path):
                                rtol=0, atol=1e-5)
     np.testing.assert_array_equal(outs[0]["full_point_horizon"], outs[1]["full_point_horizon"])
     np.testing.assert_allclose(outs[0]["point_error"], outs[1]["point_error"], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_reproducible(cuda_device):
+    """~1M rows into ~1k segments: the same bits over five calls, equal to
+    the CPU's index_add_ to float32 summation error."""
+    from pcseqlearning_tpu_torch.ops import segment_ops
+
+    rng = np.random.RandomState(0)
+    n, m = 1_000_000, 1000
+    data = T(rng.rand(n, 3).astype(np.float32))
+    ids = T(rng.randint(-5, m + 5, n))  # out-of-range ids are dropped
+    ref = segment_ops.segment_sum(data, ids, m)
+    outs = [segment_ops.segment_sum(data.to(cuda_device), ids.to(cuda_device), m).cpu()
+            for _ in range(5)]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    np.testing.assert_allclose(outs[0].numpy(), ref.numpy(), rtol=1e-5)
+    mean = segment_ops.segment_mean(data[:, 0].to(cuda_device), ids.to(cuda_device), m)
+    assert torch.equal(mean, segment_ops.segment_mean(data[:, 0].to(cuda_device),
+                                                      ids.to(cuda_device), m))
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_conv_matches_cpu(cuda_device, no_tf32):
+    from pcseqlearning_tpu_torch.ops import sparse_conv as tsc
+
+    rng = np.random.RandomState(0)
+    coords = np.unique(np.stack([rng.randint(0, 2, 3000), rng.randint(0, 20, 3000),
+                                 rng.randint(0, 40, 3000), rng.randint(0, 40, 3000)], 1), axis=0)
+    cap = len(coords) + 100
+    cp = np.full((cap, 4), -1, np.int32)
+    cp[:len(coords)] = coords
+    valid = np.arange(cap) < len(coords)
+    feats = np.where(valid[:, None], rng.randn(cap, 16), 0).astype(np.float32)
+    w1 = rng.randn(27, 16, 32).astype(np.float32) * 0.1
+    w2 = rng.randn(27, 32, 8).astype(np.float32) * 0.1
+
+    def run(dev):
+        f = T(feats).to(dev).requires_grad_(True)
+        ws = [T(w).to(dev).requires_grad_(True) for w in (w1, w2)]
+        st = tsc.SparseTensor(f, T(cp).to(dev), T(valid).to(dev), (20, 40, 40), 2)
+        st = tsc.subm_conv3d(st, ws[0])
+        st = tsc.sparse_conv3d(st, ws[1], out_cap=cap // 2)
+        dense = tsc.to_dense(st)
+        (dense ** 2).sum().backward()
+        return [x.detach().cpu() for x in (st.coords, st.valid, dense, f.grad, *[w.grad for w in ws])]
+
+    card, cpu = run(cuda_device), run(torch.device("cpu"))
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    for a, b in zip(card[2:], cpu[2:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_centerpoint_matches_cpu(cuda_device, no_tf32):
+    """The toy CenterPoint (tests/test_torch_detector.py's geometry, random
+    weights from one seed): the card's voxel table exact, its losses and
+    gradients equal to the CPU's, and two card runs the same losses."""
+    from pcseqlearning_tpu_torch.models.detectors import build_detector
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    cfg = EDict(NAME="CenterPoint", VFE={"NAME": "DynamicMeanVFE"},
+                BACKBONE_3D={"NAME": "VoxelResBackBone8x"}, MAP_TO_BEV={"NAME": "HeightCompression"},
+                BACKBONE_2D={"NAME": "BaseBEVBackbone", "LAYER_NUMS": [2, 2], "LAYER_STRIDES": [1, 2],
+                             "NUM_FILTERS": [32, 64], "UPSAMPLE_STRIDES": [1, 2],
+                             "NUM_UPSAMPLE_FILTERS": [32, 32]},
+                DENSE_HEAD={"NAME": "CenterHead", "FEATURE_MAP_STRIDE": 8})
+    runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-3.2, -3.2, -1.0, 3.2, 3.2, 2.2],
+                             "VOXEL_SIZE": [0.2, 0.2, 0.2]},
+                   class_names=["Vehicle", "Pedestrian"], voxel_cap=1024)
+    rng = np.random.RandomState(0)
+    pts = np.zeros((512, 4), np.float32)
+    pts[:, 0] = rng.randint(0, 2, 512)
+    pts[:, 1:3] = rng.rand(512, 2) * 6.0 - 3.0
+    pts[:, 3] = rng.rand(512) * 1.5 - 0.5
+    gt = np.zeros((2, 5, 8), np.float32)
+    gt[:, 0] = [1.0, 1.0, 0.5, 1.5, 1.5, 1.0, 0.3, 1]
+    gt[:, 1] = [-1.0, -1.0, 0.5, 1.0, 1.0, 1.0, -0.3, 2]
+    batch = dict(point_bxyz=pts, point_feat=rng.rand(512, 1).astype(np.float32), gt_boxes=gt)
+
+    def run(dev):
+        model = build_detector(cfg, runtime, device=dev, seed=3)
+        out = model({**{k: T(v).to(dev) for k, v in batch.items()}, "batch_size": 2})
+        out["losses"]["center_loss"].backward()
+        return (out["voxel_coords"].cpu(), {k: float(v) for k, v in out["losses"].items()},
+                {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+    card, again, cpu = run("cuda"), run("cuda"), run("cpu")
+    assert torch.equal(card[0], cpu[0])
+    assert card[1] == again[1]
+    for k, v in cpu[1].items():
+        np.testing.assert_allclose(card[1][k], v, rtol=1e-5)
+    for n, g in cpu[2].items():
+        np.testing.assert_allclose(card[2][n].numpy(), g.numpy(),
+                                   atol=1e-4 * float(g.abs().max()), err_msg=n)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.cuda
+def test_cuda_centerpoint_train_steps_repeat(cuda_device, no_tf32, deterministic_cudnn):
+    """Two train steps of the full-width CenterPoint (centerpoint.yaml's
+    MODEL at chip_smoke.py phase 7(a)'s cell), twice from the same seed,
+    with cuDNN restricted to its deterministic algorithms (its default
+    backward algorithms add in an order that changes from run to run):
+    each step's losses and gradient norm, the gradients and the parameters
+    are the same bits."""
+    from pathlib import Path
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from pcseqlearning_tpu_torch.scene import DETECTOR_CFG, bench_detector_batch
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    cfg = cfg_from_yaml_file(str(Path(__file__).resolve().parents[1] / DETECTOR_CFG), EDict())
+    runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-19.2, -19.2, -2.0, 19.2, 19.2, 4.0],
+                             "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                   class_names=list(cfg.CLASS_NAMES), voxel_cap=30_000)
+    batch = bench_detector_batch(2, 20_000, 18.7, seed=1)
+    step = make_train_step(loss_key="center_loss", device=cuda_device)
+
+    def run():
+        state = init_train_state(build_network(cfg.MODEL, runtime, device=cuda_device),
+                                 device=cuda_device)
+        steps = []
+        for _ in range(2):
+            state, losses = step(state, batch)
+            named = list(state.model.named_parameters())
+            steps.append(({k: v.cpu() for k, v in losses.items()},
+                          {n: p.grad.cpu() for n, p in named},
+                          {n: p.detach().cpu() for n, p in named}))
+        return steps
+
+    for (la, ga, pa), (lb, gb, pb) in zip(run(), run()):
+        for k in la:
+            assert torch.equal(la[k], lb[k]), k
+        for n in ga:
+            assert torch.equal(ga[n], gb[n]), n
+            assert torch.equal(pa[n], pb[n]), n

@@ -185,3 +185,22 @@ def test_slice_matches_jax(tmp_path, monkeypatch, jax_knn_proposal_pallas_tracki
     for k in ("tracking_coverage_0.7", "box_miou", "moving_box_miou"):
         assert st[k] == pytest.approx(sj[k], abs=0.01), k
     assert st["box_miou"] > 0.1  # the walk tracked something
+
+
+def test_cli_refuses_detector_training_before_building(tmp_path):
+    """The README's detector-training command on the port's CLI exits with
+    the NotImplementedError that names the missing pieces, and builds
+    nothing: no log directory, no model, no loader."""
+    res = subprocess.run(
+        [sys.executable, "-m", "pcseqlearning_tpu_torch.train",
+         "tools/cfgs/waymo_models/centerpoint.yaml",
+         "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
+         "tools/cfgs/optimizers/adamW_onecycle.yaml", "--device", "cpu",
+         "--set", "ROOT_DIR", str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    last = res.stderr.strip().splitlines()[-1]
+    assert last.startswith("NotImplementedError") and "queue 1 item 5" in last, res.stderr
+    for piece in ("augmentor", "voxel processor", "one-cycle", "train loop"):
+        assert piece in last
+    assert list(tmp_path.iterdir()) == []

@@ -55,6 +55,23 @@ def test_segment_ops_match_jax(name, dim):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dim", [None, 3])
+def test_sorted_segment_sum_matches_jax(dim):
+    """The card's atomic-free segment sum (stable sort by id, one reduction
+    per run), run here on the CPU: equal to the JAX package's segment_sum
+    at 1e-5, empty segments zero; and ``index_add`` on the CPU is
+    ``Tensor.index_add`` bit for bit."""
+    data, ids, k = _seg_case(seed=3, dim=dim)
+    ok = ids < k
+    got = tseg._sorted_segment_sum(T(data)[T(ok)], T(ids)[T(ok)], k + 2)
+    ref = np.asarray(jseg.segment_sum(jnp.asarray(data), jnp.asarray(ids), k))
+    np.testing.assert_allclose(got[:k].numpy(), ref, rtol=1e-5, atol=1e-6)
+    assert not got[k:].any()
+    base = T(np.random.RandomState(4).randn(k, *data.shape[1:]).astype(np.float32))
+    assert torch.equal(tseg.index_add(base, T(ids)[T(ok)], T(data)[T(ok)]),
+                       base.index_add(0, T(ids)[T(ok)].long(), T(data)[T(ok)]))
+
+
 def test_segment_median_int_and_empty():
     ids = np.array([0, 0, 0, 2, 2, 1, 1, 1, 1], np.int32)
     data = np.array([5, 1, 3, 7, 9, 4, 2, 8, 6], np.int32)
