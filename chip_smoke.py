@@ -95,8 +95,45 @@ host cost.
                  launches in the phase (none: the detector runs none);
                  then two steps again from the same seed, equal to the
                  first two bit for bit (losses, gradients, parameters)
+  8. detector CLIs  CenterPoint's training and evaluation as users run them:
+             python -m pcseqlearning_tpu_torch.train and .test (their main()s)
+             with centerpoint.yaml, detection_1sweep.yaml and
+             onecycle_centerpoint.yaml unchanged but for the data path, the
+             output root, --batch_size 2 (--detector-batch), the epochs and
+             the tags, over scene.make_scene sequences written as Waymo npy
+             sequences (train: 8 batches of frames x 160,000 points, seed 0;
+             val: 4 frames, seed 1; every GT box a Vehicle), full widths on
+             the +-74.88 m grid:
+             (a) two epochs (8 steps each) with --fix_random_seed: mean losses
+                 per epoch, median step and mean data seconds (the loop's
+                 meters), steps/s, points/s, voxels a step and a sample (kept
+                 by VOXEL_CAP, occupied), peak memory, the lr of the first
+                 and last update; losses finite, checkpoint_epoch_1 and _2
+                 written, parameters moved, the first lr sched(0) =
+                 LR / DIV_FACTOR
+             (b) the same command into another tag: its checkpoint_epoch_2
+                 equals (a)'s bit for bit
+             (c) (a) again at --epochs 3 --max_ckpt_save_num 2: resumed at
+                 epoch 2, 8 steps from sched(16) of the 24-step schedule,
+                 checkpoint_epoch_3 written, epochs 2 and 3 left
+             (d) (a)'s checkpoint_epoch_2 as it is: its eval-mode predictions
+                 on the val sequence (non-finite boxes, the batch norms'
+                 scale ratios), the head's outputs on the first val frame
+                 within 1e-4 of their largest value of the same forward on
+                 the CPU; where a box is non-finite, test.main must
+                 raise, as the JAX CLI does; then precise-BN copies of (a)'s
+                 checkpoints (running statistics re-estimated from the train
+                 frames): every predicted box finite, the test CLI's AP/APH
+                 table with every Vehicle value finite, --eval_all
+                 --max_waiting_mins 0 over the copies evaluating each once;
+                 and the three kernels' launches in the phase (none: the
+                 detector runs none)
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
+
+    python3 chip_smoke.py --detector-batch 8
+
+runs phase 8 at batch 8 (64 train frames) instead of 2 (16 frames).
 
     python3 chip_smoke.py --cpu-rehearsal
 
@@ -1034,6 +1071,372 @@ def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     return errs
 
 
+def summarize(history):
+    """The train loop's per-step records as one dict: each epoch's mean
+    losses, the median step seconds (all but the run's first step when
+    there are more), the mean data seconds, steps/s, points/s and the lr
+    of the first and last update."""
+    import numpy as np
+
+    epochs = sorted({h["epoch"] for h in history})
+    per_epoch = {e: {k: float(np.mean([h["losses"][k] for h in history if h["epoch"] == e]))
+                     for k in history[0]["losses"]} for e in epochs}
+    steps = [h["batch_s"] for h in history]
+    median = float(np.median(steps[1:] or steps))
+    return dict(steps=len(history), epoch_losses=per_epoch, median_step_s=median,
+                data_s=float(np.mean([h["data_s"] for h in history])),
+                steps_per_s=1.0 / median,
+                points_per_s=float(np.mean([h["points"] for h in history])) / median,
+                lr_first=history[0]["lr"], lr_last=history[-1]["lr"])
+
+
+class VoxelCounter:
+    """Wraps DynamicMeanVFE.forward while installed: for each training
+    forward, the voxels of each sample that the voxel cap kept and the
+    voxels its points occupy in the range (before the cap)."""
+
+    def __init__(self):
+        import torch
+
+        from pcseqlearning_tpu_torch.models import vfe
+
+        self.kept, self.occupied, self.cls = [], [], vfe.DynamicMeanVFE
+        self.orig = orig = self.cls.forward
+
+        def counting(vfe_self, batch_dict):
+            out = orig(vfe_self, batch_dict)
+            if vfe_self.training:
+                n = int(batch_dict["batch_size"])
+                b = out["voxel_coords"][out["voxel_valid"], 0].long()
+                self.kept.append(torch.bincount(b, minlength=n).tolist())
+                pts = batch_dict["point_bxyz"]
+                pcr = torch.tensor(vfe_self.point_cloud_range, dtype=pts.dtype, device=pts.device)
+                vs = torch.tensor(vfe_self.voxel_size, dtype=pts.dtype, device=pts.device)
+                ok = batch_dict["point_valid"] & ((pts[:, 1:] >= pcr[:3])
+                                                  & (pts[:, 1:] < pcr[3:])).all(1)
+                cells = torch.cat([pts[ok, :1].long(),
+                                   torch.floor((pts[ok, 1:] - pcr[:3]) / vs).long()], 1)
+                occ = torch.unique(cells, dim=0)[:, 0]
+                self.occupied.append(torch.bincount(occ, minlength=n).tolist())
+            return out
+
+        self.cls.forward = counting
+
+    def restore(self):
+        self.cls.forward = self.orig
+
+
+def eval_forward_stats(model, loader, n_cap, device):
+    """The detector's predict over ``loader`` as test.eval_ckpt runs it:
+    predicted boxes, how many have a non-finite value (and a NaN), and for the first
+    batch the eval-mode input's spread at each batch norm against its
+    running statistics (median over channels of std / sqrt(running_var +
+    eps)): the largest such ratio and the one at the last batch norm."""
+    import torch
+
+    from pcseqlearning_tpu_torch.models.layers import MaskedBatchNorm, _BatchNorm
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, _to_device,
+                                                             dense_batch_from_collated)
+
+    ratios = []
+
+    def probe(m, inp):
+        x = inp[0].detach().double()
+        x = x[inp[1]] if isinstance(m, MaskedBatchNorm) else x.transpose(0, 1).flatten(1).T
+        if len(x) > 1:
+            ratios.append(float((x.std(0) / torch.sqrt(m.running_var.double() + m.eps)).median()))
+
+    n_boxes = n_bad = n_nan = 0
+    for i, batch in enumerate(loader):
+        hooks = [m.register_forward_pre_hook(probe) for m in model.modules()
+                 if isinstance(m, _BatchNorm)] if i == 0 else []
+        with torch.no_grad():
+            _, boxes, _, _, valid = model.predict(
+                _flatten_local(**_to_device(dense_batch_from_collated(batch, n_cap), device)))
+        for h in hooks:
+            h.remove()
+        b = boxes[valid]
+        n_boxes += len(b)
+        n_bad += int((~torch.isfinite(b).all(1)).sum())
+        n_nan += int(torch.isnan(b).any(1).sum())
+    return dict(boxes=n_boxes, not_finite=n_bad, with_nan=n_nan, bn_ratio_max=max(ratios),
+                bn_ratio_last=ratios[-1])
+
+
+def precise_bn_copy(src, dst, model, loader, n_cap, device):
+    """Write ``src``'s checkpoint to ``dst`` with its batch norms' running
+    statistics replaced by the mean of the batch statistics of training-mode
+    forwards over ``loader`` with ``src``'s parameters (precise BN: the
+    running averages of a short run still hold mostly their initial values,
+    see detector_cli_phase). The parameters are ``src``'s."""
+    import torch
+
+    from pcseqlearning_tpu_torch.models.layers import _BatchNorm
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, _to_device,
+                                                             dense_batch_from_collated)
+
+    ckpt = torch.load(src, map_location="cpu", weights_only=True)
+    model.load_state_dict(ckpt["model"])
+    bns = [m for m in model.modules() if isinstance(m, _BatchNorm)]
+    model.train()
+    with torch.no_grad():
+        for k, batch in enumerate(loader):
+            for m in bns:
+                m.momentum = 1.0 / (k + 1)  # the running values become the mean over batches
+            model(_flatten_local(**_to_device(dense_batch_from_collated(batch, n_cap), device)))
+    for m in bns:
+        m.momentum = 0.01
+    model.eval()
+    Path(dst).parent.mkdir(parents=True, exist_ok=True)
+    torch.save({**ckpt, "model": {k: v.cpu() for k, v in model.state_dict().items()}}, dst)
+
+
+def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
+    """Phase 8: the detector's training and evaluation through the port's
+    own CLIs, train.main and test.main, with centerpoint.yaml,
+    detection_1sweep.yaml and onecycle_centerpoint.yaml unchanged but for
+    the data path, the output root, --batch_size (2, or --detector-batch),
+    the epochs and the tags (the CPU rehearsal also shrinks the model and
+    the grid), over 8 batches of train frames an epoch. (a) two epochs
+    with --fix_random_seed, the voxels of each sample counted (kept by
+    VOXEL_CAP, and occupied): finite losses, checkpoint_epoch_1 and _2,
+    parameters moved from their initial values, the first update at
+    sched(0), LR / DIV_FACTOR to 1e-6 (the warmup's float32 start); (b)
+    the same command into another tag, whose checkpoint_epoch_2 must equal
+    (a)'s bit for bit (parameters, batch-norm buffers, optimizer moments
+    and count, step); (c) (a)'s command again at
+    --epochs 3 --max_ckpt_save_num 2: it resumes at epoch 2, runs one epoch
+    whose first update uses sched(2 * steps an epoch) of the schedule that
+    --epochs 3 builds, writes checkpoint_epoch_3 and leaves epochs 2 and 3.
+    A resumed run is not held to a continuous one: as in the JAX package,
+    the host's augmentation draws restart on resume. (d) First (a)'s
+    checkpoint_epoch_2 as it is: after 16 updates its batch norms' running
+    statistics (momentum 0.01) still hold 85% of their initial values, so in
+    the eval-mode forward each batch norm scales its input by its mismatch,
+    the scales multiply down the backbones, the box sizes' exp overflows and
+    the metric's matching raises on the non-finite overlaps, as the JAX
+    CLI's does: the phase logs the non-finite boxes and the scale ratios,
+    holds the head's outputs on the card to the CPU's for the first val
+    frame (1e-4 of their largest value) and, where a box is non-finite,
+    requires test.main to raise. Then precise-BN copies of (a)'s
+    checkpoints (the running statistics re-estimated from the train
+    sequence, parameters unchanged): they must predict boxes, all finite;
+    test.main on the val sequence
+    with the copy of checkpoint_epoch_2: every Vehicle AP/APH value finite;
+    then --eval_all over the copies with --max_waiting_mins 0, which must
+    evaluate each once. No kernel of the port runs here (all three launch
+    counts 0). Returns failures."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch import test as test_cli
+    from pcseqlearning_tpu_torch import train
+    from pcseqlearning_tpu_torch.datasets import build_dataloader
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, _to_device,
+                                                             dense_batch_from_collated)
+    from pcseqlearning_tpu_torch.scene import detector_argv, write_detector_sequences
+
+    frames, points, val_frames, batch = size
+    # the rehearsal's CPU-sized model and grid; the card runs the configs' own
+    shrink = [] if not rehearse else [
+        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
+        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
+        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
+        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
+        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
+    errs = []
+    log(f"# detector cli: torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_detector_") as root:
+        t0 = time.perf_counter()
+        train_path, val_path = write_detector_sequences(root, frames, points, val_frames)
+        log(f"# detector cli: wrote {frames} train and {val_frames} val frames x {points} points "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        def run_train(tag, epochs, *extra):
+            argv = detector_argv(repo, train_path, root, dev.type, "--batch_size", str(batch),
+                                 "--epochs", str(epochs), "--fix_random_seed", "--extra_tag", tag,
+                                 *extra, overrides=shrink)
+            return train.main(argv), train.parse_config(argv)[1]
+
+        for fn in kernels.values():
+            fn.launches = 0
+        # ---- (a)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        voxels = VoxelCounter()
+        try:
+            res_a, cfg = run_train("a", 2)
+        finally:
+            voxels.restore()
+        main_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        hist = res_a["history"]
+        steps_per_epoch = len(hist) // 2
+        summary = summarize(hist)
+        opt = cfg.OPTIMIZATION
+        lr0 = float(np.float32(opt.LR / opt.DIV_FACTOR))
+        ckpt_dir = Path(res_a["ckpt_dir"])
+        ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+        runtime = dict(train.runtime_cfg_of(cfg), num_point_features=len(
+            cfg.DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list))
+        init = build_network(cfg.MODEL, runtime, device="cpu").state_dict()
+        trained = torch.load(ckpt_dir / "checkpoint_epoch_2", map_location="cpu",
+                             weights_only=True)
+        moved = sum(not torch.equal(v, trained["model"][k]) for k, v in init.items()
+                    if v.is_floating_point())
+        kept, occupied = np.array(voxels.kept), np.array(voxels.occupied)
+        rec = dict(cell="detector_cli", gpu=gpu_line, frames=frames, points_per_frame=points,
+                   batch_size=batch, epochs=2, main_s=main_s, peak_gb=peak_gb,
+                   voxels_per_step=float(kept.sum(1).mean()),
+                   voxels_per_sample_kept=[int(kept.min()), float(kept.mean()), int(kept.max())],
+                   voxels_per_sample_occupied=[int(occupied.min()), float(occupied.mean()),
+                                               int(occupied.max())],
+                   lr_step0=hist[0]["lr"], lr_div=lr0, checkpoints=ckpts,
+                   tensors_moved=[moved, sum(v.is_floating_point() for v in init.values())],
+                   **summary)
+        log(f"# detector cli (a) {json.dumps(rec)}")
+        finite = all(math.isfinite(v) for h in hist for v in h["losses"].values())
+        if not finite:
+            errs.append("detector cli (a): a loss is not finite")
+        if ckpts != ["checkpoint_epoch_1", "checkpoint_epoch_2"]:
+            errs.append(f"detector cli (a): checkpoints {ckpts}")
+        if moved == 0:
+            errs.append("detector cli (a): no parameter moved")
+        # sched(0) is optax's float32 warmup start, within a rounding of LR / DIV_FACTOR
+        if not (hist[0]["lr"] == float(res_a["schedule"](0))
+                and abs(hist[0]["lr"] / lr0 - 1) < 1e-6):
+            errs.append(f"detector cli (a): first lr {hist[0]['lr']} is not sched(0) = "
+                        f"LR / DIV_FACTOR = {lr0}")
+        if len(hist) != 2 * steps_per_epoch or steps_per_epoch != frames // batch:
+            errs.append(f"detector cli (a): {len(hist)} steps, not 2 x {frames // batch}")
+        # ---- (b)
+        t0 = time.perf_counter()
+        res_b, _ = run_train("b", 2)
+        other = torch.load(Path(res_b["ckpt_dir"]) / "checkpoint_epoch_2", map_location="cpu",
+                           weights_only=True)
+        differing = [k for k, v in trained["model"].items()
+                     if not torch.equal(v, other["model"][k])]
+        oa, ob = trained["optimizer"], other["optimizer"]
+        differing += [f"optimizer {k}[{i}]" for k in oa["moments"]
+                      for i, (x, y) in enumerate(zip(oa["moments"][k], ob["moments"][k]))
+                      if not torch.equal(x, y)]
+        same_count = oa["count"] == ob["count"] and trained["step"] == other["step"]
+        log(f"# detector cli (b): {time.perf_counter() - t0:.1f} s; checkpoint_epoch_2 equal to "
+            f"(a)'s bit for bit: {not differing and same_count} (count {ob['count']}, step "
+            f"{other['step']}; differing {differing[:5]})")
+        if differing or not same_count:
+            errs.append(f"detector cli (b): checkpoint_epoch_2 differs from (a)'s in "
+                        f"{differing[:5]} (counts {oa['count']} / {ob['count']})")
+        # ---- (c)
+        t0 = time.perf_counter()
+        res_c, _ = run_train("a", 3, "--max_ckpt_save_num", "2")
+        hist_c = res_c["history"]
+        ckpts_c = sorted(p.name for p in ckpt_dir.iterdir())
+        log_files = sorted(ckpt_dir.parent.glob("log_train_*.txt"), key=lambda p: p.stat().st_mtime)
+        resumed = "at epoch 2" in log_files[-1].read_text()
+        want_lr = float(res_c["schedule"](2 * steps_per_epoch))
+        log(f"# detector cli (c): {time.perf_counter() - t0:.1f} s; resumed at epoch "
+            f"{res_c['start_epoch']} (logged: {resumed}), {len(hist_c)} steps, first lr "
+            f"{hist_c[0]['lr']} (sched({2 * steps_per_epoch}) = {want_lr} of the "
+            f"{3 * steps_per_epoch}-step schedule), checkpoints {ckpts_c}, losses "
+            f"{summarize(hist_c)['epoch_losses']}")
+        if not (res_c["start_epoch"] == 2 and resumed and len(hist_c) == steps_per_epoch
+                and hist_c[0]["lr"] == want_lr
+                and ckpts_c == ["checkpoint_epoch_2", "checkpoint_epoch_3"]):
+            errs.append("detector cli (c): the resume did not start at epoch 2 with "
+                        f"sched({2 * steps_per_epoch}), run one epoch and leave epochs 2 and 3")
+        # ---- (d)
+        t0 = time.perf_counter()
+        test_argv = detector_argv(repo, val_path, root, dev.type, "--extra_tag", "a",
+                                  overrides=shrink)
+        _, tcfg = test_cli.parse_config(test_argv)
+        n_cap = int(tcfg.MODEL.POINT_CAP)
+        val_set, val_loader = build_dataloader(tcfg.DATA_CONFIG, tcfg.CLASS_NAMES, 1,
+                                               training=False)
+        model = build_network(tcfg.MODEL, train.runtime_cfg_of(tcfg), val_set, device=dev)
+        model.load_state_dict(trained["model"])
+        raw = eval_forward_stats(model, val_loader, n_cap, dev)
+        if dev.type == "cuda":
+            # the same eval-mode forward on the CPU, first val frame: the
+            # head's outputs relative to their largest value
+            cpu_model = build_network(tcfg.MODEL, train.runtime_cfg_of(tcfg), val_set,
+                                      device="cpu")
+            cpu_model.load_state_dict(trained["model"])
+            dense = dense_batch_from_collated(next(iter(val_loader)), n_cap)
+            with torch.no_grad():
+                on_card = model.predict(_flatten_local(**_to_device(dense, dev)))
+                on_cpu = cpu_model.predict(_flatten_local(**_to_device(dense, torch.device("cpu"))))
+            heads = {k: (on_card[0]["center_preds"][k].cpu().double(), v.double())
+                     for k, v in on_cpu[0]["center_preds"].items()}
+            raw["card_vs_cpu_head_err_of_max"] = {
+                k: float((a - b).abs().max() / b.abs().max()) for k, (a, b) in heads.items()}
+            raw["card_vs_cpu_head_max"] = max(float(b.abs().max()) for _, b in heads.values())
+            raw["card_vs_cpu_same_non_finite_boxes"] = bool(torch.equal(
+                torch.isfinite(on_card[1]).cpu(), torch.isfinite(on_cpu[1])))
+            if not max(raw["card_vs_cpu_head_err_of_max"].values()) <= 1e-4:
+                errs.append(f"detector cli (d): the eval-mode forward on the card differs from "
+                            f"the CPU's: {raw['card_vs_cpu_head_err_of_max']}")
+        raised = None
+        if raw["not_finite"]:
+            try:
+                test_cli.main(test_argv[:3] + ["--ckpt", str(ckpt_dir / "checkpoint_epoch_2")]
+                              + test_argv[3:])
+            except ValueError as e:
+                raised = str(e)
+        log(f"# detector cli (d): (a)'s checkpoint_epoch_2 as it is, eval-mode predict on "
+            f"{val_frames} val frames {json.dumps(raw)}; test.main raised: {raised}")
+        if raw["not_finite"] and raised is None:
+            errs.append("detector cli (d): test.main scored non-finite boxes without raising")
+        # precise-BN copies of (a)'s remaining checkpoints, from the train frames
+        fit_cfg = test_cli.parse_config(detector_argv(repo, train_path, root, dev.type,
+                                                      overrides=shrink))[1]
+        _, fit_loader = build_dataloader(fit_cfg.DATA_CONFIG, fit_cfg.CLASS_NAMES, batch,
+                                         training=False)
+        precise = Path(root) / "precise_bn"
+        for name in ckpts_c:
+            precise_bn_copy(ckpt_dir / name, precise / name, model, fit_loader, n_cap, dev)
+        model.load_state_dict(torch.load(precise / "checkpoint_epoch_2", map_location="cpu",
+                                         weights_only=True)["model"])
+        fixed = eval_forward_stats(model, val_loader, n_cap, dev)
+        log(f"# detector cli (d): precise-BN copy of checkpoint_epoch_2 "
+            f"({len(fit_loader)} train batches), eval-mode predict {json.dumps(fixed)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if fixed["not_finite"] or not fixed["boxes"]:
+            errs.append(f"detector cli (d): the precise-BN checkpoint predicts {fixed}")
+        t0 = time.perf_counter()
+        res_d = test_cli.main(test_argv[:3] + ["--ckpt", str(precise / "checkpoint_epoch_2")]
+                              + test_argv[3:])
+        table = next(iter(res_d.values()))
+        vehicle = {k: v for k, v in table.items() if k.startswith("Vehicle/")}
+        log(f"# detector cli (d): {time.perf_counter() - t0:.1f} s; AP/APH of the precise-BN "
+            f"checkpoint_epoch_2 on {val_frames} val frames {json.dumps(table)}")
+        if not vehicle or not all(math.isfinite(v) for v in vehicle.values()):
+            errs.append(f"detector cli (d): Vehicle AP/APH not finite: {vehicle}")
+        t0 = time.perf_counter()
+        res_all = test_cli.main(test_argv[:3] + ["--eval_all", "--ckpt_dir", str(precise),
+                                                 "--max_waiting_mins", "0"] + test_argv[3:])
+        visited = [Path(p).name for p in res_all]
+        log(f"# detector cli (d) --eval_all: {time.perf_counter() - t0:.1f} s; evaluated "
+            f"{visited}")
+        if visited != ckpts_c:
+            errs.append(f"detector cli (d): --eval_all evaluated {visited}, not {ckpts_c}")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"# detector cli: kernel launches in phase 8 {json.dumps(launches)}")
+    return errs
+
+
+def arg_value(flag, default):
+    """The value after ``flag`` on the command line, else ``default``."""
+    args = sys.argv[1:]
+    return args[args.index(flag) + 1] if flag in args else default
+
+
 def main():
     import torch
 
@@ -1050,6 +1453,7 @@ def main():
         golden_size, bench_size, fixed_c = (6, 2500), (10, 2500), 16
         walk_size, rigid_sizes, entry_size = (10, 2500), (60, 400), (4, 600)
         detector_sizes = (3.2, 500, 1024), (3.2, 500, 1024, 2, 3)
+        cli_size = (4, 3000, 2, 2)
 
         def sync():
             pass
@@ -1060,6 +1464,12 @@ def main():
         # 7(a): the range cut to +-19.2 m and 2 x 20,000 points, so the CPU
         # side takes seconds; 7(b): bench_detector's cell
         detector_sizes = (19.2, 20_000, 30_000), (74.88, 160_000, 120_000, 2, 8)
+        # phase 8: 8 batches of train frames (16 at batch 2, 8 steps an
+        # epoch) and 4 val frames of 160,000 points, bench_detector's Waymo
+        # frame size; --detector-batch N runs it at batch N (the config's own
+        # BATCH_SIZE_PER_GPU is 8)
+        cli_batch = int(arg_value("--detector-batch", 2))
+        cli_size = (8 * cli_batch, 160_000, 4, cli_batch)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -1296,6 +1706,13 @@ def main():
     errs = detector_phase(repo, dev, gpu_line, kernels, rehearse, detector_sizes)
     log(f"# phase 7: {time.perf_counter() - t0:.1f} s")
     if errs and not rehearse:
+        fail("; ".join(errs))
+
+    # ---- 8. the detector's training and evaluation CLIs ------------------------
+    t0 = time.perf_counter()
+    errs = detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, cli_size)
+    log(f"# phase 8: {time.perf_counter() - t0:.1f} s")
+    if errs:
         fail("; ".join(errs))
 
     for r in rows:

@@ -3,7 +3,8 @@
 This package ports the unsupervised cluster-sequence extraction pipeline
 (ground removal -> multi-radius cluster proposal -> cluster tracking by the
 batched, host or device walk, with ICP or gradient-descent registration,
-driven per sequence by SimpleReg) to PyTorch on an NVIDIA H100. The JAX
+driven per sequence by SimpleReg) and the CenterPoint detector with its
+training and evaluation runtime to PyTorch on an NVIDIA H100. The JAX
 package stays beside it as the reference; this package imports nothing of
 it and never imports ``jax``.
 
@@ -14,12 +15,16 @@ Layers:
                   connected components) and radius_scan (k-NN claims)
   preprocessing/  GroundPlaneRemover, ClusterProposal, ClusterTracking,
                   registration, the GD solver, SimpleReg
-  datasets/       the Waymo sequence dataset, processors, loader
-  models/         build_network (SimpleReg)
+  datasets/       the Waymo sequence dataset, augmentor, processors, loader
+  models/         build_network (SimpleReg, CenterPoint)
+  parallel/       the detector's train step on one card
+  runtime/        optimizers and schedules, the train loop and checkpoints,
+                  detection metrics
   utils/          EDict, bucketing, frame index, telemetry, the YAML
                   subset reader, logger and seeding
   config.py       YAML configs with _BASE_CONFIG_ includes and overrides
   train.py        the CLI: python -m pcseqlearning_tpu_torch.train
+  test.py         the detector evaluation CLI: python -m pcseqlearning_tpu_torch.test
   convert.py      JAX-side config + environment -> explicit port config
   scene.py        the synthetic scenes, and writing one as a Waymo sequence
 

@@ -1,10 +1,11 @@
 """Dataset template and key-name-driven batch collation (counterpart of
 pcseqlearning_tpu.datasets.dataset).
 
-``prepare_data`` filters the GT boxes by class (training), encodes the
-point features and runs the processors; ``collate_batch`` pads boxes to
-[B, max_gt, C], concatenates point arrays and prefixes a batch index,
-turning ``points`` into ``point_bxyz`` and ``point_feat``.
+``prepare_data`` filters the GT boxes by class and augments (training),
+sets the class ids, encodes the point features and runs the processors;
+``collate_batch`` pads boxes to [B, max_gt, C], concatenates point arrays
+and prefixes a batch index, turning ``points`` into ``point_bxyz`` and
+``point_feat``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.edict import EDict
+from .augmentor import DataAugmentor
 from .processor import DataProcessor, PointFeatureEncoder
 
 
@@ -28,12 +30,17 @@ class DatasetTemplate:
             np.float32)
         self.point_feature_encoder = PointFeatureEncoder(
             self.dataset_cfg.get("POINT_FEATURE_ENCODING", {}))
-        if training and self.dataset_cfg.get("DATA_AUGMENTOR", None):
-            raise NotImplementedError("DATA_AUGMENTOR: the data augmentor is not ported yet "
-                                      "(ROADMAP.md §2, data and runtime)")
+        # one RandomState for the augmentor and the processors: their draws
+        # follow the JAX package's global sequence
+        rng = rng if rng is not None else np.random.RandomState(0)
+        aug_cfg = self.dataset_cfg.get("DATA_AUGMENTOR", None)
+        self.data_augmentor = (DataAugmentor(aug_cfg, class_names, rng=rng)
+                               if training and aug_cfg else None)
         self.data_processor = DataProcessor(
             self.dataset_cfg.get("DATA_PROCESSOR", []),
             point_cloud_range=self.point_cloud_range, training=training, rng=rng)
+        self.grid_size = self.data_processor.grid_size
+        self.voxel_size = self.data_processor.voxel_size
 
     def __len__(self):
         raise NotImplementedError
@@ -47,6 +54,8 @@ class DatasetTemplate:
             keep = np.isin(data_dict["gt_names"], self.class_names)
             data_dict["gt_boxes"] = data_dict["gt_boxes"][keep]
             data_dict["gt_names"] = np.asarray(data_dict["gt_names"])[keep]
+            if self.data_augmentor is not None:
+                data_dict = self.data_augmentor(data_dict)
         if ("gt_names" in data_dict and data_dict.get("gt_boxes") is not None
                 and len(data_dict["gt_boxes"])):
             cls_ids = np.array(

@@ -2,11 +2,13 @@
 (counterpart of pcseqlearning_tpu.datasets.processor), on host NumPy.
 
 Ported processors: ``limit_num_points`` (the only one the registration
-dataset configs name), ``mask_points_and_boxes_outside_range`` and
-``shuffle_points``. Their random draws come from an explicit
-``np.random.RandomState`` (the JAX module draws from the global one; with
-the same seed the draws are equal). Any other processor NAME raises
-NotImplementedError.
+dataset configs name), ``mask_points_and_boxes_outside_range``,
+``shuffle_points`` and ``transform_points_to_voxels`` (the DRY path that
+the detection configs use: the dynamic VFE voxelizes on the device, so the
+processor records the grid's voxel size and shape). Their random draws come
+from an explicit ``np.random.RandomState`` (the JAX module draws from the
+global one; with the same seed the draws are equal). Any other processor
+NAME raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 from ..utils.edict import EDict
 
 _POINT_KEYS = ("points", "point_sweep", "segmentation_label", "instance_label")
-_PORTED = ("mask_points_and_boxes_outside_range", "shuffle_points", "limit_num_points")
+_PORTED = ("mask_points_and_boxes_outside_range", "shuffle_points", "limit_num_points",
+           "transform_points_to_voxels")
 
 
 class PointFeatureEncoder:
@@ -27,6 +30,10 @@ class PointFeatureEncoder:
         self.config = EDict(config)
         self.src_list = list(self.config.get("src_feature_list", ["x", "y", "z", "intensity"]))
         self.used_list = list(self.config.get("used_feature_list", ["x", "y", "z", "intensity"]))
+
+    @property
+    def num_point_features(self):
+        return len(self.used_list)
 
     def __call__(self, data_dict):
         idx = [self.src_list.index(f) for f in self.used_list]
@@ -43,13 +50,15 @@ class DataProcessor:
         self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
         self.training = training
         self.rng = rng if rng is not None else np.random.RandomState(0)
+        self.grid_size = None
+        self.voxel_size = None
         self.queue = []
         for cfg in processor_configs:
             cfg = EDict(cfg)
             if cfg.NAME not in _PORTED:
                 raise NotImplementedError(
-                    f"DataProcessor: {cfg.NAME} is not ported yet (ROADMAP.md §2, "
-                    "data and runtime)")
+                    f"DataProcessor: {cfg.NAME} is not ported yet (ROADMAP.md, queue 1 "
+                    "item 5)")
             self.queue.append(getattr(self, cfg.NAME)(config=cfg))
 
     def mask_points_and_boxes_outside_range(self, data_dict=None, config=None):
@@ -92,6 +101,17 @@ class DataProcessor:
             for key in _POINT_KEYS:
                 if key in data_dict and data_dict[key] is not None and len(data_dict[key]) == n:
                     data_dict[key] = data_dict[key][sel]
+        return data_dict
+
+    def transform_points_to_voxels(self, data_dict=None, config=None):
+        """Records the grid: VOXEL_SIZE and the range over it, rounded."""
+        if data_dict is None:
+            self.voxel_size = np.asarray(config["VOXEL_SIZE"], np.float32)
+            grid = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) / self.voxel_size
+            self.grid_size = np.round(grid).astype(np.int64)
+            return lambda d: self.transform_points_to_voxels(d, config)
+        data_dict["voxel_size"] = self.voxel_size
+        data_dict["grid_size"] = self.grid_size
         return data_dict
 
     def forward(self, data_dict):

@@ -11,10 +11,14 @@ boxes and their headings, and pads the objects per sweep. In sequence mode
 (NUM_SWEEPS covering the sequence) there is one item per sequence, its last
 sample being the anchor.
 
-Not ported (NotImplementedError; ROADMAP.md §2, data and runtime):
+``generate_prediction_dicts`` formats a batch's predictions as detection
+annos, and ``evaluation`` scores them against the infos' annos with the
+"waymo" metric (``runtime.eval_utils.waymo_style_ap``) or the "simple" one.
+
+Not ported (NotImplementedError; ROADMAP.md, queue 1 item 5):
 SPHERICAL_RESAMPLING, MIX3D (training), WITH_TIME_FEAT, USE_SHARED_MEMORY
-(the per-frame cache), ``evaluation``. No config under ``tools/cfgs/``
-sets any of them.
+(the per-frame cache), and the "waymo_ii" metric (the interaction-index
+breakdown). No config under ``tools/cfgs/`` sets any of them.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ..ops import boxes as box_ops
 from ..utils.edict import EDict
 from .dataset import DatasetTemplate
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md §2, data and runtime)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 5)"
 
 
 def _boxes_to_corners_np(boxes):
@@ -241,5 +245,31 @@ class WaymoDataset(DatasetTemplate):
                 data_dict[k] = merged.point_wise[k]
         return self.prepare_data(data_dict)
 
+    def generate_prediction_dicts(self, batch_dict, pred_dicts, class_names, output_path=None):
+        """One anno per sample: frame_id, boxes_lidar, score, name (label l
+        names class l - 1; label 0 names the first class) and pred_labels."""
+        annos = []
+        for i, pd in enumerate(pred_dicts):
+            labels = np.asarray(pd["pred_labels"]).astype(int)
+            annos.append(dict(
+                frame_id=batch_dict["frame_id"][i],
+                boxes_lidar=np.asarray(pd["pred_boxes"]),
+                score=np.asarray(pd["pred_scores"]),
+                name=np.asarray([class_names[max(lab - 1, 0)] for lab in labels]),
+                pred_labels=labels,
+            ))
+        return annos
+
     def evaluation(self, det_annos, class_names, eval_metric="waymo", **kwargs):
-        raise NotImplementedError(f"WaymoDataset.evaluation {_NOT_PORTED}")
+        """(result_str, results) of ``det_annos`` against the annos of the
+        first ``len(det_annos)`` infos, in order: "simple" is greedy-matching
+        AP, any other metric but "waymo_ii" the Waymo-style AP/APH."""
+        from ..runtime import eval_utils
+
+        gt_annos = [copy.deepcopy(info["annos"]) for info in self.infos[:len(det_annos)]]
+        if eval_metric == "simple":
+            return eval_utils.simple_detection_eval(det_annos, gt_annos, class_names)
+        if eval_metric == "waymo_ii":
+            raise NotImplementedError(f"WaymoDataset.evaluation: the metric 'waymo_ii' "
+                                      f"{_NOT_PORTED}")
+        return eval_utils.waymo_style_ap(det_annos, gt_annos, class_names)

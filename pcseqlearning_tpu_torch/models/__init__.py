@@ -7,6 +7,10 @@ from __future__ import annotations
 
 
 def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
+    """The model of MODEL.NAME on ``device``. A detector takes its geometry
+    from ``runtime_cfg`` (``data_cfg``, ``class_names``, ``voxel_cap``, as the
+    JAX ``build_detector`` does) and the VFE's width from ``dataset``'s point
+    feature encoding when a dataset is given."""
     name = model_cfg["NAME"]
     if name == "SimpleReg":
         from ..preprocessing import SimpleReg
@@ -15,6 +19,10 @@ def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
     if name == "CenterPoint":
         from .detectors import build_detector
 
+        runtime_cfg = dict(runtime_cfg or {})
+        if dataset is not None:
+            runtime_cfg.setdefault("num_point_features",
+                                   dataset.point_feature_encoder.num_point_features)
         return build_detector(model_cfg, runtime_cfg, device=device)
     raise NotImplementedError(f"build_network: the detector {name!r} is not ported yet "
                               "(ROADMAP.md, queue 1 item 4)")

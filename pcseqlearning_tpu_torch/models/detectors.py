@@ -18,9 +18,6 @@ from .dense_heads import CenterHead
 from .vfe import DynamicMeanVFE
 
 _LATER = "ROADMAP.md, queue 1 item 4 (the other detectors)"
-# x, y, z and the one point feature of every batch the port builds (the
-# VFE's output width; flax infers it from the input)
-_VOXEL_FEATURES = 4
 
 
 def _unported(what):
@@ -60,7 +57,8 @@ class Detector3DTemplate(nn.Module):
     head's losses in ``batch_dict["losses"]``."""
 
     def __init__(self, model_cfg, num_classes, grid_size, point_cloud_range, voxel_size,
-                 voxel_cap=16384, dense_table_cap=sc.DENSE_TABLE_CAP, generator=None):
+                 voxel_cap=16384, dense_table_cap=sc.DENSE_TABLE_CAP, generator=None,
+                 num_point_features=4):
         super().__init__()
         cfg = model_cfg
         for key in ("PFE", "ROI_HEAD", "SEG_HEAD"):
@@ -76,7 +74,7 @@ class Detector3DTemplate(nn.Module):
         if b3d not in BACKBONES_3D:
             raise _unported(f"the 3D backbone {b3d!r}")
         self.backbone_3d = BACKBONES_3D[b3d](
-            _VOXEL_FEATURES, grid_size, voxel_cap,
+            num_point_features, grid_size, voxel_cap,
             dense_table_cap=dense_table_cap, generator=generator)
         m2b = cfg.get("MAP_TO_BEV", {"NAME": "HeightCompression"})["NAME"]
         if m2b != "HeightCompression":
@@ -127,7 +125,9 @@ def build_detector(model_cfg, runtime_cfg=None, device="cuda", seed=0):
     seeded with ``seed``. ``runtime_cfg`` carries the geometry as the JAX
     function takes it (``data_cfg`` POINT_CLOUD_RANGE and VOXEL_SIZE,
     ``class_names``, ``voxel_cap``), plus ``dense_table_cap`` (default
-    300,000,000, the JAX package's PCSEQ_DENSE_TABLE_CAP default)."""
+    300,000,000, the JAX package's PCSEQ_DENSE_TABLE_CAP default) and
+    ``num_point_features``, the VFE's width: x, y, z and the point features
+    (default 4, one feature; flax infers it from the input)."""
     dev = resolve_device(device)
     runtime_cfg = runtime_cfg or {}
     data_cfg = runtime_cfg.get("data_cfg", {})
@@ -140,5 +140,6 @@ def build_detector(model_cfg, runtime_cfg=None, device="cuda", seed=0):
         grid_size=grid, point_cloud_range=pcr, voxel_size=voxel_size,
         voxel_cap=int(runtime_cfg.get("voxel_cap", 16384)),
         dense_table_cap=int(runtime_cfg.get("dense_table_cap", sc.DENSE_TABLE_CAP)),
-        generator=torch.Generator().manual_seed(seed))
+        generator=torch.Generator().manual_seed(seed),
+        num_point_features=int(runtime_cfg.get("num_point_features", 4)))
     return model.to(dev)

@@ -1,8 +1,17 @@
-"""Rotated 3D box corners and membership (counterpart of
-pcseqlearning_tpu.ops.boxes.boxes_to_corners_3d / points_in_boxes). Box
-convention (OpenPCDet):
+"""Rotated 3D box corners, membership and IoU (counterpart of
+pcseqlearning_tpu.ops.boxes: boxes_to_corners_3d, points_in_boxes,
+boxes_overlap_bev, boxes_iou_bev, boxes_iou3d). Box convention (OpenPCDet):
 [x, y, z, dx, dy, dz, heading], (x, y, z) the geometric center, heading a
-counter-clockwise rotation around +z."""
+counter-clockwise rotation around +z.
+
+The IoUs are the JAX module's arithmetic in plain PyTorch on the tensors'
+device: each pair's BEV rectangles are clipped one against the other
+(Sutherland-Hodgman, into polygons of a fixed 16 slots, compacted by a sort
+of the emitted vertices' positions), the intersection's area is the
+shoelace sum, and the 3D overlap multiplies it by the z-extents' overlap.
+The JAX package computes them in XLA, with no Pallas kernel; so does this
+module. NMS (``nms_bev``, ``nms_normal_bev``) is not ported: CenterPoint's
+decode is a top-k (ROADMAP.md, queue 1 item 4)."""
 
 from __future__ import annotations
 
@@ -43,3 +52,93 @@ def points_in_boxes(points_xyz, boxes, margin=1e-2):
     in_x = local_x.abs() < bx[..., 3] / 2.0 + margin
     in_y = local_y.abs() < bx[..., 4] / 2.0 + margin
     return in_z & in_x & in_y
+
+
+def _bev_corners(boxes):
+    """[B, 7] -> [B, 4, 2] BEV rectangle corners, counter-clockwise."""
+    dx, dy = boxes[:, 3] / 2.0, boxes[:, 4] / 2.0
+    local = torch.stack([torch.stack([dx, dy], -1), torch.stack([-dx, dy], -1),
+                         torch.stack([-dx, -dy], -1), torch.stack([dx, -dy], -1)], dim=1)
+    cosa, sina = torch.cos(boxes[:, 6])[:, None], torch.sin(boxes[:, 6])[:, None]
+    x = local[..., 0] * cosa - local[..., 1] * sina
+    y = local[..., 0] * sina + local[..., 1] * cosa
+    return torch.stack([x, y], dim=-1) + boxes[:, None, 0:2]
+
+
+def _clip_polygon(poly, poly_n, a, b):
+    """Clip the convex polygons ``poly`` [M, P, 2] (the first ``poly_n`` [M]
+    vertices valid) by the half-plane left of the directed edges a -> b
+    [M, 2]. Returns the clipped polygons in the same P slots and their
+    vertex counts."""
+    P = poly.shape[-2]
+    idx = torch.arange(P, device=poly.device)
+    nxt = torch.where(idx + 1 >= poly_n[:, None], 0, idx + 1)
+    d = b - a
+    rel = poly - a[:, None, :]
+    side = d[:, None, 0] * rel[..., 1] - d[:, None, 1] * rel[..., 0]  # > 0: inside (left)
+    inside = side >= -1e-8
+    nxt_v = torch.gather(poly, 1, nxt[..., None].expand(-1, -1, 2))
+    nxt_side = torch.gather(side, 1, nxt)
+    nxt_inside = nxt_side >= -1e-8
+    denom = side - nxt_side
+    t = side / torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
+    inter = poly + (nxt_v - poly) * t[..., None]
+    valid_v = idx[None, :] < poly_n[:, None]
+    # each vertex emits itself (inside) and the crossing of its edge (if any)
+    emit_self = inside & valid_v
+    emit_inter = (inside != nxt_inside) & valid_v
+    out_pts = torch.cat([poly, inter], dim=-2)
+    out_ok = torch.cat([emit_self, emit_inter], dim=-1)
+    pos = torch.cat([2 * idx, 2 * idx + 1])
+    order = torch.argsort(torch.where(out_ok, pos, 10 * P), dim=-1)
+    out_pts = torch.gather(out_pts, 1, order[..., None].expand(-1, -1, 2))
+    out_ok_sorted = torch.gather(out_ok, 1, order)
+    out_n = out_ok.sum(-1)
+    out_pts = torch.where(out_ok_sorted[..., None], out_pts, torch.zeros_like(out_pts))[:, :P]
+    return out_pts, torch.clamp(out_n, max=P)
+
+
+def _polygon_area(poly, n_valid):
+    """Shoelace area of the first ``n_valid`` vertices of each polygon."""
+    P = poly.shape[-2]
+    idx = torch.arange(P, device=poly.device)
+    nxt = torch.where(idx + 1 >= n_valid[:, None], 0, idx + 1)
+    nxt_v = torch.gather(poly, 1, nxt[..., None].expand(-1, -1, 2))
+    cross = poly[..., 0] * nxt_v[..., 1] - poly[..., 1] * nxt_v[..., 0]
+    valid = idx[None, :] < n_valid[:, None]
+    return torch.where(valid, cross, torch.zeros_like(cross)).sum(-1).abs() / 2.0
+
+
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """[A, B] BEV intersection areas of rotated boxes [A, 7] and [B, 7]."""
+    ca, cb = _bev_corners(boxes_a), _bev_corners(boxes_b)
+    A, B = boxes_a.shape[0], boxes_b.shape[0]
+    ca = ca[:, None].expand(A, B, 4, 2).reshape(A * B, 4, 2)
+    cb = cb[None].expand(A, B, 4, 2).reshape(A * B, 4, 2)
+    # a 4-gon clipped by four half-planes has at most 8 vertices; 16 slots
+    poly = torch.cat([ca, ca.new_zeros(A * B, 12, 2)], dim=1)
+    n = torch.full((A * B,), 4, dtype=torch.int64, device=ca.device)
+    for e in range(4):
+        poly, n = _clip_polygon(poly, n, cb[:, e], cb[:, (e + 1) % 4])
+    return _polygon_area(poly, n).reshape(A, B)
+
+
+def boxes_iou_bev(boxes_a, boxes_b):
+    """[A, B] rotated BEV IoU."""
+    inter = boxes_overlap_bev(boxes_a, boxes_b)
+    area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
+    area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
+    return inter / torch.clamp(area_a + area_b - inter, min=1e-7)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """[A, B] 3D IoU: the rotated BEV overlap times the z-extents' overlap."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    za1, za2 = boxes_a[:, 2] - boxes_a[:, 5] / 2.0, boxes_a[:, 2] + boxes_a[:, 5] / 2.0
+    zb1, zb2 = boxes_b[:, 2] - boxes_b[:, 5] / 2.0, boxes_b[:, 2] + boxes_b[:, 5] / 2.0
+    zi = torch.clamp(torch.minimum(za2[:, None], zb2[None, :])
+                     - torch.maximum(za1[:, None], zb1[None, :]), min=0.0)
+    inter = inter_bev * zi
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-7)

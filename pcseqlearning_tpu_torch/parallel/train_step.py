@@ -5,8 +5,12 @@ A step runs the training forward (which updates the batch norms' running
 statistics in place, as the JAX step keeps the forward's new
 ``batch_stats``), takes ``losses[loss_key]``, backpropagates, zeroes the
 gradients of frozen parameters, reads the global L2 norm of the gradients
-and applies the optimizer (by default ``torch.optim.Adam(lr=1e-3,
-eps=1e-8)``, the update of ``optax.adam(1e-3)``).
+(``grad_norm``: before any clipping, as the JAX step's
+``optax.global_norm(grads)``) and applies the optimizer: the one that
+``runtime.optimization.build_optimizer`` makes (optax's clip, then Adam,
+AdamW or SGD at the schedule's rate; it carries its update count, so a
+loaded state resumes the schedule), by default the one it makes for
+``OPTIMIZER: adam``, ``LR: 1e-3`` and no clip: ``optax.adam(1e-3)``.
 
 Batches use the JAX layout: dense per-sample tables [B, N_cap, ...] with
 validity masks (``dense_batch_from_collated``), flattened to the point
@@ -15,6 +19,7 @@ table with batch indices (``_flatten_local``).
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 from typing import Any
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..runtime.optimization import build_optimizer, global_norm
 
 
 @dataclass
@@ -75,12 +81,13 @@ def _to_device(batch, device):
 
 def init_train_state(model, make_optimizer=None, device="cuda"):
     """TrainState for ``model`` on ``device`` (``"cuda"`` raises without a
-    card); ``make_optimizer(params)`` defaults to Adam(lr=1e-3, eps=1e-8)."""
+    card); ``make_optimizer(params)`` (the first value that
+    ``build_optimizer`` returns) defaults to ``optax.adam(1e-3)``'s."""
     dev = resolve_device(device)
     model = model.to(dev)
     if make_optimizer is None:
-        def make_optimizer(params):
-            return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+        make_optimizer, _ = build_optimizer({"OPTIMIZER": "adam", "LR": 1e-3,
+                                             "GRAD_NORM_CLIP": math.inf})
     return TrainState(model, make_optimizer(model.parameters()), 0)
 
 
@@ -111,7 +118,7 @@ def make_train_step(loss_key="rpn_loss", freeze_regexes=(), freeze_until=0, devi
             for name, p in params:
                 if any(pat.search(param_path(name)) for pat in patterns):
                     p.grad.zero_()
-        losses["grad_norm"] = torch.sqrt(sum((p.grad ** 2).sum() for _, p in params))
+        losses["grad_norm"] = global_norm([p.grad for _, p in params])
         opt.step()
         state.step += 1
         return state, losses

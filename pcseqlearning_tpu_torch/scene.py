@@ -9,8 +9,11 @@ dict and ``scene_batch`` a collated SimpleReg batch of such sequences.
 ``make_rigid_scene`` (a copy of tests/test_registration_oracle.py's) is a
 two-frame registration problem with a known rigid motion per cluster.
 ``write_waymo_sequence`` writes such a scene to disk in the layout that
-``datasets.WaymoDataset`` reads. ``bench_detector_batch`` is
-``bench.py::bench_detector``'s batch for ``DETECTOR_CFG`` (CenterPoint).
+``datasets.WaymoDataset`` reads; ``write_detector_sequences`` writes the
+train and val sequences of the detector CLIs' smoke run and tests, and
+``detector_argv`` is those CLIs' command line over ``DETECTOR_CFGS``.
+``bench_detector_batch`` is ``bench.py::bench_detector``'s batch for
+``DETECTOR_CFG`` (CenterPoint).
 """
 
 from __future__ import annotations
@@ -186,6 +189,31 @@ def write_waymo_sequence(root, frames, gt, name, processed_data_tag="waymo_proce
 
 
 DETECTOR_CFG = "tools/cfgs/waymo_models/centerpoint.yaml"
+# the detector CLIs' configs: model, data, optimizer (the README's command)
+DETECTOR_CFGS = (DETECTOR_CFG, "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
+                 "tools/cfgs/optimizers/onecycle_centerpoint.yaml")
+
+
+def write_detector_sequences(root, frames, points, val_frames=0):
+    """A ``make_scene`` sequence (seed 0, every GT box a Vehicle) under
+    ``<root>/train`` and, when ``val_frames``, one of seed 1 under
+    ``<root>/val``: the paths of the two DATA_PATHs."""
+    root = Path(root)
+    write_waymo_sequence(root / "train", *make_scene(num_frames=frames, points_per_frame=points,
+                                                     seed=0), "det_train")
+    if val_frames:
+        write_waymo_sequence(root / "val", *make_scene(num_frames=val_frames,
+                                                       points_per_frame=points, seed=1), "det_val")
+    return str(root / "train"), str(root / "val")
+
+
+def detector_argv(repo, data_path, root, device, *args, overrides=()):
+    """The detector CLIs' argv: ``DETECTOR_CFGS`` under ``repo``, then
+    ``args``, then ``--set`` with the data path, the output root and
+    ``overrides``."""
+    return ([str(Path(repo) / c) for c in DETECTOR_CFGS]
+            + ["--device", device, *args, "--set", "DATA_CONFIG.DATA_PATH", data_path,
+               "ROOT_DIR", str(root), *overrides])
 
 
 def bench_detector_batch(batch_size, n_points, extent, seed=0):

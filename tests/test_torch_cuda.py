@@ -19,7 +19,8 @@ The sparse convs and the toy CenterPoint on the card equal the port on the
 CPU with TF32 off: features and losses to 1e-5 relative, gradients to 1e-4
 of each tensor's max |g| (float32 GEMMs blocked differently). With cuDNN
 restricted to its deterministic algorithms, two train steps of the
-full-width CenterPoint repeat bit for bit.
+full-width CenterPoint repeat bit for bit, and so do two runs of the
+detector-training CLI's loop (their checkpoints).
 """
 
 import numpy as np
@@ -494,3 +495,36 @@ def test_cuda_centerpoint_train_steps_repeat(cuda_device, no_tf32, deterministic
         for n in ga:
             assert torch.equal(ga[n], gb[n]), n
             assert torch.equal(pa[n], pb[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_detector_cli_train_loop_repeats(cuda_device, tmp_path):
+    """Two steps of the detector-training CLI (centerpoint.yaml,
+    detection_1sweep.yaml and onecycle_centerpoint.yaml unchanged but for
+    the data path, the output root, batch 2 and one epoch, over 4 written
+    frames of 40,000 points: the one-cycle AdamW with its clip), run twice
+    into two tags: the two checkpoints are the same bits (parameters,
+    batch-norm buffers, optimizer moments and count). ``train.main`` sets
+    ``cudnn.deterministic`` itself."""
+    from pathlib import Path
+
+    from pcseqlearning_tpu_torch import train
+    from pcseqlearning_tpu_torch.scene import detector_argv, write_detector_sequences
+
+    repo = Path(__file__).resolve().parents[1]
+    data, _ = write_detector_sequences(tmp_path, frames=4, points=40_000)
+
+    def run(tag):
+        out = train.main(detector_argv(repo, data, tmp_path, "cuda", "--batch_size", "2",
+                                       "--epochs", "1", "--fix_random_seed", "--extra_tag", tag))
+        assert len(out["history"]) == 2
+        return torch.load(Path(out["ckpt_dir"]) / "checkpoint_epoch_1", map_location="cpu",
+                          weights_only=True)
+
+    a, b = run("a"), run("b")
+    assert a["optimizer"]["count"] == b["optimizer"]["count"] == 2
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    for k, ts in a["optimizer"]["moments"].items():
+        for i, (x, y) in enumerate(zip(ts, b["optimizer"]["moments"][k])):
+            assert torch.equal(x, y), (k, i)

@@ -125,7 +125,8 @@ def test_import_loads_no_jax():
         "       'ops.sparse_conv', 'models.layers', 'models.vfe', 'models.backbones_3d',\n"
         "       'models.backbones_2d', 'models.dense_heads', 'models.detectors',\n"
         "       'utils.loss_utils', 'parallel.train_step', 'tools.determinism_cost',\n"
-        "       'tools.profile_detector_step']\n"
+        "       'tools.profile_detector_step', 'test', 'datasets.augmentor',\n"
+        "       'runtime.optimization', 'runtime.train_utils', 'runtime.eval_utils']\n"
         "missing = [n for n in new if 'pcseqlearning_tpu_torch.' + n not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('pcseqlearning_tpu_torch')]))\n"
         "assert not bad and not missing, (bad, missing)\n"

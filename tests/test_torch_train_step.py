@@ -106,14 +106,16 @@ def test_first_update_equals_jax(jax_steps):
 
 
 def test_adam_update_equals_optax(rng):
-    """torch.optim.Adam(lr=1e-3, eps=1e-8) and optax.adam(1e-3): three
+    """init_train_state's default optimizer and optax.adam(1e-3): three
     updates on fixed gradients."""
     p0 = rng.randn(5, 7).astype(np.float32)
     grads = [rng.randn(5, 7).astype(np.float32) * s for s in (1.0, 1e-3, 10.0)]
     tx = optax.adam(1e-3)
     p, opt_state = jnp.asarray(p0), tx.init(jnp.asarray(p0))
     w = torch.nn.Parameter(T(p0).clone())
-    opt = torch.optim.Adam([w], lr=1e-3, eps=1e-8)
+    holder = torch.nn.Module()
+    holder.w = w
+    opt = tts.init_train_state(holder, device="cpu").optimizer
     for g in grads:
         upd, opt_state = tx.update(jnp.asarray(g), opt_state, p)
         p = optax.apply_updates(p, upd)
