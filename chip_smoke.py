@@ -128,6 +128,22 @@ host cost.
                  --max_waiting_mins 0 over the copies evaluating each once;
                  and the three kernels' launches in the phase (none: the
                  detector runs none)
+  9. dist   the distributed paths on the one card (gloo ranks sharing it,
+             and a one-rank NCCL group), each comparison on data where dp = K
+             and dp = 1 compute the same function (see dist_phase):
+             (a) the data-parallel train step at phase 7(a)'s cell, 2 ranks
+                 against 1: float32 step-1 losses, float64 reduced gradients
+                 and step-2 losses, the ranks' state after two steps;
+                 steps/s of each arm
+             (b) the detector-training CLI at world size 2 against 1: step-1
+                 losses; rank 0 alone writes; a world-size-2 resume
+             (c) ClusterProposal(NUM_SHARDS=4) on the bench scene's first 20
+                 frames, the card standing for 4 devices: no halo truncated,
+                 no kernel launched, and on 2 frames equal to 4 CPU slots;
+                 its agreement with the unsharded kNN-graph and radius-graph
+                 runs printed
+             Every line of this phase starts "# dist" and names the card and
+             its power limit.
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -145,6 +161,7 @@ itself without a card.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1431,6 +1448,407 @@ def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
     return errs
 
 
+def _to_cpu(x):
+    if hasattr(x, "cpu"):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def dp_cell_arm(group, dev, repo, runtime, batch, steps=3):
+    """Phase 9(a), one arm: centerpoint.yaml's MODEL from its seeded
+    weights, TF32 off, cuDNN deterministic, data-parallel over ``group``
+    (None: one process, no collective). ``steps`` float32 steps, each
+    reading its losses to the host; then two float64 steps. Returns the
+    float32 losses, step seconds, parameters and buffers after two steps,
+    the seconds of one all-reduce of a gradient-sized float32 buffer, the
+    float64 losses of both steps and reduced gradients of the first, and
+    peak memory."""
+    import torch
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from pcseqlearning_tpu_torch.scene import DETECTOR_CFG
+    from pcseqlearning_tpu_torch.utils import dist_utils
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg_from_yaml_file(str(Path(repo) / DETECTOR_CFG), EDict())
+    step = make_train_step(loss_key="center_loss", device=dev, group=group)
+    state = init_train_state(build_network(cfg.MODEL, runtime, device=dev), device=dev,
+                             group=group)
+    losses, step_s, after_two = [], [], None
+    for i in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        state, ls = step(state, batch)
+        losses.append({k: float(v) for k, v in ls.items()})
+        step_s.append(time.perf_counter() - t0)
+        if i == 1:
+            after_two = _to_cpu(state.model.state_dict())
+    flat = torch.cat([p.grad.reshape(-1) for p in state.model.parameters() if p.grad is not None])
+    allreduce_s = None
+    if group is not None:
+        dist_utils.all_reduce(flat.clone(), group=group)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dist_utils.all_reduce(flat.clone(), group=group)
+        sync()
+        allreduce_s = (time.perf_counter() - t0) / 5
+    n_params = flat.numel()
+    backend = None if group is None else torch.distributed.get_backend(group)
+    del state, flat
+    state = init_train_state(build_network(cfg.MODEL, runtime, device=dev).double(), device=dev,
+                             group=group)
+    b64 = {k: (v.astype("float64") if v.dtype.kind == "f" else v) for k, v in batch.items()}
+    losses64 = []
+    for i in range(2):
+        state, ls = step(state, b64)
+        losses64.append({k: float(v) for k, v in ls.items()})
+        if i == 0:
+            grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=step_s, after_two=after_two, allreduce_s=allreduce_s,
+                gradient_floats=n_params, backend=backend,
+                losses64=losses64, grads64=grads, peak_gb=peak)
+
+
+def _dp_cell_rank(rank, world, dev_type, repo, runtime, batch):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device("cpu")
+    return dp_cell_arm(dist.group.WORLD, dev, repo, runtime, batch)
+
+
+def _cli_rank(rank, world, argv):
+    import torch
+
+    from pcseqlearning_tpu_torch import train
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    res = train.main(argv)
+    st = res["state"]
+    return dict(history=res["history"], start_epoch=res["start_epoch"], step=st.step,
+                model=_to_cpu(st.model.state_dict()), optimizer=_to_cpu(st.optimizer.state_dict()),
+                device=str(next(st.model.parameters()).device), threads=torch.get_num_threads())
+
+
+def _partition_agreement(a, b):
+    """(components of a, of b, distinct (a, b) pairs): a one-to-one map
+    between the two labelings iff all three are equal."""
+    import numpy as np
+
+    pairs = np.unique(np.stack([a, b], 1), axis=0)
+    return int(len(np.unique(a))), int(len(np.unique(b))), int(len(pairs))
+
+
+def dist_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
+    """Phase 9: the distributed paths on one card. The card holds one
+    NVIDIA GPU and NCCL refuses two ranks on one card, so K ranks are gloo
+    processes sharing cuda:0 (dist_utils stages their CUDA tensors through
+    the host); the one-rank arm runs in a one-rank NCCL group, so the NCCL
+    path of the collectives runs too. dp = K equals dp = 1 only for batches
+    where every shard holds as many positives and boxes, no voxel table is
+    filled to its cap and no point is padding or out of range
+    (train_step.dp_equivalence_issues, checked before each comparison).
+
+    (a) the data-parallel step at phase 7(a)'s cell (centerpoint.yaml's
+    MODEL at full widths, +-19.2 m, 2 x 20,000 points) with VOXEL_CAP
+    raised until the one-rank tables cut nothing and the boxes on a lattice
+    (lattice_detector_batch): 2 gloo ranks, one sample each, against one
+    rank: the head's float32 step-1 losses within 1e-4 relative; float64
+    reduced gradients of step 1 within 1e-8 of each tensor's max |g| and
+    float64 step-2 losses within 1e-8 (the float32 gradients, and so
+    grad_norm and everything after the first Adam update, carry this
+    model's float32 noise, and are printed); both ranks' parameters and
+    buffers equal bit for bit after two steps; steps/s of each arm and the
+    seconds of one all-reduce of the gradients.
+    (b) the detector-training CLI (phase 8(a)'s configs) at world size 2
+    through train.main in 2 gloo ranks against world size 1: 4 train frames
+    of 40,000 points (make_scene with its 8 clusters on a 40 m ring, so no
+    box or point leaves the range and no two boxes share a heatmap cell),
+    POINT_CAP below every sample's point count, VOXEL_CAP above every
+    table's fill, one epoch at batch 2 (two steps, one sample per rank):
+    step-1 losses within 1e-4 (step 2's printed: it follows Adam's first
+    update, which turns the float32 gradients' noise into ~1e-2 of the
+    losses; (a) holds step 2 in float64); one log file and
+    the checkpoints written (by rank 0); the ranks' parameters, buffers
+    and optimizer moments equal bit for bit; a world-size-2 resume from the
+    checkpoint starts at its epoch.
+    (c) ClusterProposal(NUM_SHARDS=4) with the card standing for 4 devices
+    on make_scene's first 20 frames (90,000 points a frame, the bench's
+    proposal config at 1.25 m, CHUNK_FRAMES 10), at a HALO_CAP that
+    truncates nothing, launching none of the three kernels; on the first 2
+    frames, the card's point_cluster equal to the same run over 4 CPU
+    slots. Printed without a bound: the partition's agreement with the
+    card's unsharded CC_GRAPH="knn" run and with the radius-graph
+    (cc_round) run, as (components, components, distinct pairs), at that
+    cap and at the default HALO_CAP 4096 (with its truncation), seconds and
+    peak memory, halo and gather bytes. The sharded graph is the unsharded
+    k-capped graph only where the neighbour and cell caps do not bind at a
+    slab boundary: a halo copy of a point lists its k nearest among the
+    points its slab sees, which are not its k nearest overall. On this
+    dense scene they bind, so the partitions differ, in JAX as here
+    (tests/test_torch_point_shard.py holds the port to JAX's sharded
+    result on such a scene). Returns failures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pcseqlearning_tpu_torch import pipeline, train
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.convert import config_from_jax
+    from pcseqlearning_tpu_torch.datasets import build_dataloader
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.parallel.train_step import (dense_batch_from_collated,
+                                                             dp_equivalence_issues)
+    from pcseqlearning_tpu_torch.preprocessing import ClusterProposal
+    from pcseqlearning_tpu_torch.scene import (DETECTOR_CFG, detector_argv,
+                                               lattice_detector_batch, make_scene,
+                                               write_detector_sequences)
+    from pcseqlearning_tpu_torch.utils import dist_utils, telemetry
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    import gc
+
+    (a_extent, a_points, a_cap), (b_frames, b_points, b_point_cap, b_voxel_cap, b_shrink), \
+        (c_frames, c_points, c_cpu_frames, c_chunk) = sizes
+    errs = []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    env = {"LOCAL_RANK": "0"}  # both ranks on the one card
+    for fn in kernels.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as root:
+        root = Path(root)
+        # ---- (a)
+        t0 = time.perf_counter()
+        cfg = cfg_from_yaml_file(str(repo / DETECTOR_CFG), EDict())
+        runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-a_extent, -a_extent, -2.0, a_extent,
+                                                       a_extent, 4.0],
+                                 "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                       class_names=list(cfg.CLASS_NAMES), voxel_cap=a_cap)
+        batch = lattice_detector_batch(2, a_points, a_extent - 0.5, seed=1)
+        issues, fills = dp_equivalence_issues(build_network(cfg.MODEL, runtime, device=dev),
+                                              batch, 2)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(backend, world_size=1, rank=0,
+                                store=dist.FileStore(str(root / "store_one"), 1))
+        try:
+            one = dp_cell_arm(dist.group.WORLD, dev, str(repo), runtime, batch)
+        finally:
+            dist.destroy_process_group()
+        two = dist_utils.launch_ranks(_dp_cell_rank, 2, str(root / "store_a"),
+                                      args=(dev.type, str(repo), runtime, batch), timeout=600,
+                                      env=env)
+        # the head's losses; grad_norm is a float32 gradient statistic (the
+        # float32 gradients of this model are noisy, PERF.md), so the
+        # gradients are held in float64
+        loss_err = max(abs(r["losses"][0][k] / v - 1) for r in two
+                       for k, v in one["losses"][0].items() if k != "grad_norm")
+        grad_norm_err = max(abs(r["losses"][0]["grad_norm"] / one["losses"][0]["grad_norm"] - 1)
+                            for r in two)
+        step2_err = max(abs(r["losses"][1][k] / v - 1) for r in two
+                        for k, v in one["losses"][1].items() if k != "grad_norm")
+        step2_err64 = max(abs(r["losses64"][1][k] / v - 1) for r in two
+                          for k, v in one["losses64"][1].items())
+        grad_err = max(float((r["grads64"][n] - g).abs().max()
+                             / max(float(g.abs().max()), 1e-30))
+                       for r in two for n, g in one["grads64"].items())
+        differing = [k for k, v in two[0]["after_two"].items()
+                     if not torch.equal(v, two[1]["after_two"][k])]
+        med = lambda s: sorted(s[1:])[len(s[1:]) // 2]  # noqa: E731
+        rec = dict(cell="dp_step", gpu=gpu_line, range_m=a_extent, points=[2, a_points],
+                   voxel_cap=a_cap, voxels_kept_and_caps=fills, equivalence_issues=issues,
+                   losses_one_rank=one["losses"][0], losses_two_ranks=two[0]["losses"][0],
+                   loss_rel_err=loss_err, fp32_grad_norm_rel_err=grad_norm_err,
+                   fp64_grad_err_of_max=grad_err, step2_loss_rel_err=step2_err,
+                   fp64_step2_loss_rel_err=step2_err64,
+                   fp64_losses=[one["losses64"], two[0]["losses64"]],
+                   ranks_differ_after_two_steps=differing[:5],
+                   steps_per_s_one_rank=1.0 / med(one["step_s"]),
+                   steps_per_s_two_ranks=[1.0 / med(r["step_s"]) for r in two],
+                   step_s=[one["step_s"]] + [r["step_s"] for r in two],
+                   allreduce_s={one["backend"]: one["allreduce_s"],
+                                "gloo (2 ranks, host-staged)": two[0]["allreduce_s"]},
+                   gradient_floats=one["gradient_floats"],
+                   peak_gb=[one["peak_gb"]] + [r["peak_gb"] for r in two],
+                   seconds=time.perf_counter() - t0)
+        log(f"# dist (a) {json.dumps(rec)}")
+        if issues:
+            errs.append(f"dist (a): the batch breaks the dp equivalence: {issues}")
+        if not loss_err <= 1e-4:
+            errs.append(f"dist (a): 2 ranks' step-1 losses {loss_err:.2e} from 1 rank's (1e-4)")
+        if not grad_err <= 1e-8:
+            errs.append(f"dist (a): float64 reduced gradients {grad_err:.2e} of max from 1 "
+                        f"rank's (1e-8)")
+        if not step2_err64 <= 1e-8:
+            errs.append(f"dist (a): float64 step-2 losses {step2_err64:.2e} from 1 rank's (1e-8)")
+        if differing:
+            errs.append(f"dist (a): the ranks differ after two steps in {differing[:5]}")
+        del one, two
+
+        # ---- (b)
+        t0 = time.perf_counter()
+        train_path, _ = write_detector_sequences(root / "cli", b_frames, b_points, ring=40.0,
+                                                 n_clusters=8)
+        overrides = list(b_shrink) + ["MODEL.POINT_CAP", str(b_point_cap), "MODEL.VOXEL_CAP",
+                                      str(b_voxel_cap)]
+
+        def argv(tag, epochs):
+            return detector_argv(repo, train_path, root / "cli", dev.type, "--batch_size", "2",
+                                 "--epochs", str(epochs), "--fix_random_seed", "--extra_tag",
+                                 tag, overrides=overrides)
+
+        _, ccfg = train.parse_config(argv("check", 1))
+        dataset, loader = build_dataloader(ccfg.DATA_CONFIG, ccfg.CLASS_NAMES, 2, training=True,
+                                           rng=np.random.RandomState(train.SEED))
+        model = build_network(ccfg.MODEL, train.runtime_cfg_of(ccfg), dataset, device=dev)
+        checks = [dp_equivalence_issues(model, dense_batch_from_collated(b, b_point_cap), 2)
+                  for b in loader]
+        del model
+        res1 = train.main(argv("w1", 1))
+        h1, ckpt_dir1 = [h["losses"] for h in res1["history"]], res1["ckpt_dir"]
+        step_s1 = [h["batch_s"] for h in res1["history"]]
+        del res1  # free the card for the ranks
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res2 = dist_utils.launch_ranks(_cli_rank, 2, str(root / "store_b"),
+                                       args=(argv("w2", 1),), timeout=600, env=env)
+        out2 = Path(ckpt_dir1).parent.parent / "w2"
+        logs, ckpts = sorted(out2.glob("log_train_*.txt")), sorted(os.listdir(out2 / "ckpt"))
+        errs_by_step = [max(abs(r["history"][i]["losses"][k] / v - 1) for r in res2
+                            for k, v in h1[i].items() if k != "grad_norm")
+                        for i in range(len(h1))]
+        differing = [k for k, v in res2[0]["model"].items()
+                     if not torch.equal(v, res2[1]["model"][k])]
+        oa, ob = res2[0]["optimizer"], res2[1]["optimizer"]
+        differing += [f"optimizer {k}[{i}]" for k in oa["moments"]
+                      for i, (x, y) in enumerate(zip(oa["moments"][k], ob["moments"][k]))
+                      if not torch.equal(x, y)]
+        resumed = dist_utils.launch_ranks(_cli_rank, 2, str(root / "store_b2"),
+                                          args=(argv("w2", 2),), timeout=600, env=env)
+        rec = dict(cell="detector_cli_world2", gpu=gpu_line, frames=b_frames,
+                   points_per_frame=b_points, point_cap=b_point_cap, voxel_cap=b_voxel_cap,
+                   voxels_kept_and_caps=[c[1] for c in checks],
+                   equivalence_issues=[c[0] for c in checks],
+                   losses_world1=h1, losses_world2=[h["losses"] for h in res2[0]["history"]],
+                   loss_rel_err_by_step=errs_by_step,
+                   grad_norm_rel_err_by_step=[abs(res2[0]["history"][i]["losses"]["grad_norm"]
+                                                  / h1[i]["grad_norm"] - 1)
+                                              for i in range(len(h1))],
+                   step_s_world1=step_s1,
+                   step_s_world2=[h["batch_s"] for h in res2[0]["history"]],
+                   rank_devices=[r["device"] for r in res2], log_files=len(logs),
+                   checkpoints=ckpts, ranks_differ=differing[:5],
+                   resume_start_epoch=[r["start_epoch"] for r in resumed],
+                   resume_steps=[len(r["history"]) for r in resumed],
+                   seconds=time.perf_counter() - t0)
+        log(f"# dist (b) {json.dumps(rec)}")
+        if any(c[0] for c in checks):
+            errs.append(f"dist (b): a batch breaks the dp equivalence: {[c[0] for c in checks]}")
+        # step 1 only: the second step follows Adam's first update, which moves
+        # every weight by the learning rate in the sign of its float32 gradient,
+        # and this model's float32 gradients are noisy enough to flip many
+        # signs; (a) holds the second step in float64
+        if len(h1) != 2 or not errs_by_step[0] <= 1e-4:
+            errs.append(f"dist (b): world-size-2 step-1 losses {errs_by_step[0]:.2e} from "
+                        f"world size 1 (1e-4)")
+        if len(logs) != 1 or ckpts != ["checkpoint_epoch_1"]:
+            errs.append(f"dist (b): {len(logs)} log files and checkpoints {ckpts} at world "
+                        f"size 2 (rank 0 alone writes one log and checkpoint_epoch_1)")
+        if differing:
+            errs.append(f"dist (b): the ranks end differing in {differing[:5]}")
+        if [r["start_epoch"] for r in resumed] != [1, 1]:
+            errs.append(f"dist (b): the resume started at {rec['resume_start_epoch']}, not 1")
+        del res2, resumed
+
+    # ---- (c)
+    t0 = time.perf_counter()
+    seq, _ = make_scene(num_frames=c_frames, points_per_frame=c_points, seed=0)
+    fxyz = seq.astype(np.float32)
+    frame = fxyz[:, 0].astype(np.int64)
+    base = config_from_jax(dict(pipeline.BENCH["proposal"], CHUNK_FRAMES=c_chunk,
+                                COMPONENT_KEYS=["component_rad1x25"]))
+    base.GRAPH = dict(base.GRAPH, RADIUS=[1.25])
+    card4 = [dev] * 4
+    launches = {}
+
+    def propose(cfg, device, devices=None, rows=None):
+        d = dict(point_fxyz=fxyz if rows is None else fxyz[rows],
+                 point_sweep=frame if rows is None else frame[rows])
+        telemetry.reset()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.perf_counter()
+        out = ClusterProposal(cfg, device=device, devices=devices).propose_cluster(d)
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else 0.0
+        return (out["point_component_rad1x25"], time.perf_counter() - t, peak,
+                telemetry.snapshot())
+
+    big_cap = 1 << 17
+    for fn in kernels.values():
+        fn.launches = 0
+    sharded = propose(dict(base, NUM_SHARDS=4, HALO_CAP=big_cap), dev, card4)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    default = propose(dict(base, NUM_SHARDS=4), dev, card4)
+    knn = propose(dict(base, CC_GRAPH="knn"), dev)
+    radius = propose(dict(base, CC_GRAPH="radius"), dev)
+    first = frame < c_cpu_frames
+    small_card = propose(dict(base, NUM_SHARDS=4, HALO_CAP=big_cap), dev, card4, first)
+    small_cpu = propose(dict(base, NUM_SHARDS=4, HALO_CAP=big_cap), torch.device("cpu"),
+                        [torch.device("cpu")] * 4, first)
+    agree = _partition_agreement(sharded[0], knn[0])
+    rec = dict(cell="sharded_proposal", gpu=gpu_line, frames=c_frames, points_per_frame=c_points,
+               chunk_frames=c_chunk, radius=1.25, shards=4, devices=[str(d) for d in card4],
+               halo_cap=big_cap, halo_truncated=sharded[3]["proposal_halo_truncated"],
+               halo_bytes=sharded[3].get("shard_halo_bytes", 0),
+               gather_bytes=sharded[3].get("shard_gather_bytes", 0),
+               components_sharded_knn_pairs=agree,
+               default_halo_cap=dict(halo_cap=4096,
+                                     truncated=default[3]["proposal_halo_truncated"],
+                                     components_sharded_knn_pairs=_partition_agreement(
+                                         default[0], knn[0])),
+               against_radius_graph=dict(components_sharded_radius_pairs=_partition_agreement(
+                   sharded[0], radius[0])),
+               seconds=dict(sharded=sharded[1], sharded_default_cap=default[1], knn=knn[1],
+                            radius=radius[1], first_frames_card=small_card[1],
+                            first_frames_cpu=small_cpu[1]),
+               peak_gb=dict(sharded=sharded[2], knn=knn[2], radius=radius[2]),
+               cpu_frames=c_cpu_frames,
+               card_equals_cpu=bool(np.array_equal(small_card[0], small_cpu[0])),
+               kernel_launches_sharded=launches, seconds_total=time.perf_counter() - t0)
+    log(f"# dist (c) {json.dumps(rec)}")
+    if rec["halo_truncated"]:
+        errs.append(f"dist (c): {rec['halo_truncated']} halo points truncated at {big_cap}")
+    if not rec["card_equals_cpu"]:
+        errs.append("dist (c): the sharded proposal on the card differs from the CPU's")
+    if any(launches.values()):
+        errs.append(f"dist (c): the sharded proposal launched kernels {launches}")
+    return errs
+
+
 def arg_value(flag, default):
     """The value after ``flag`` on the command line, else ``default``."""
     args = sys.argv[1:]
@@ -1454,6 +1872,12 @@ def main():
         walk_size, rigid_sizes, entry_size = (10, 2500), (60, 400), (4, 600)
         detector_sizes = (3.2, 500, 1024), (3.2, 500, 1024, 2, 3)
         cli_size = (4, 3000, 2, 2)
+        dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
+            "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
+            "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
+            "[0.8,0.8,0.2]", "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]",
+            "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
+            "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]), (4, 3000, 2, 2))
 
         def sync():
             pass
@@ -1470,6 +1894,13 @@ def main():
         # BATCH_SIZE_PER_GPU is 8)
         cli_batch = int(arg_value("--detector-batch", 2))
         cli_size = (8 * cli_batch, 160_000, 4, cli_batch)
+        # phase 9: (a) phase 7(a)'s cell with a cap that cuts no stage of
+        # the one-rank table (its fullest, the stride-4 stage, holds ~118k
+        # voxels against cap / 2); (b) 4 frames of 40,000 points, 30,000
+        # kept a sample, a cap that cuts no stage (the stride-8 stage holds
+        # ~114k against cap / 4); (c) the bench scene's first 20 frames
+        dist_sizes = ((19.2, 20_000, 300_000), (4, 40_000, 30_000, 600_000, []),
+                      (20, 90_000, 2, 10))
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -1712,6 +2143,13 @@ def main():
     t0 = time.perf_counter()
     errs = detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, cli_size)
     log(f"# phase 8: {time.perf_counter() - t0:.1f} s")
+    if errs:
+        fail("; ".join(errs))
+
+    # ---- 9. the distributed paths ----------------------------------------------
+    t0 = time.perf_counter()
+    errs = dist_phase(repo, dev, gpu_line, kernels, rehearse, dist_sizes)
+    log(f"# phase 9: {time.perf_counter() - t0:.1f} s")
     if errs:
         fail("; ".join(errs))
 

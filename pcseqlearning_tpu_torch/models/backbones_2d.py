@@ -1,8 +1,8 @@
 """BEV projection and 2D backbone (counterpart of
-pcseqlearning_tpu.models.backbones_2d): ``HeightCompression`` and
-``BaseBEVBackbone``. The port's maps are NCHW where the JAX modules' are
-NHWC; ``convert.detector_params_from_flax`` maps the kernels.
-``PointPillarScatter`` waits for PointPillar (ROADMAP.md, queue 1 item 4).
+pcseqlearning_tpu.models.backbones_2d): ``HeightCompression``,
+``PointPillarScatter`` and ``BaseBEVBackbone``. The port's maps are NCHW
+where the JAX modules' are NHWC; ``convert.detector_params_from_flax`` maps
+the kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +24,28 @@ class HeightCompression(nn.Module):
         b, d, h, w, c = dense.shape
         batch_dict["spatial_features"] = dense.permute(0, 1, 4, 2, 3).reshape(b, d * c, h, w)
         batch_dict["spatial_features_stride"] = batch_dict.get("encoded_spconv_tensor_stride", 8)
+        return batch_dict
+
+
+class PointPillarScatter(nn.Module):
+    """Scatter the pillar (voxel) features onto the BEV grid: row p with
+    coords (b, z, y, x) fills cell (b, :, y, x) of a dense [B, C, H, W]
+    map, through ``grid_densify`` (pillar coords are unique: dynamic
+    voxelization dedupes them); stride 1."""
+
+    def __init__(self, grid_size):
+        super().__init__()
+        self.nx, self.ny = int(grid_size[0]), int(grid_size[1])
+
+    def forward(self, batch_dict):
+        feats = batch_dict.get("pillar_features", batch_dict.get("voxel_features"))
+        coords = batch_dict["voxel_coords"].long()  # [P, 4] (b, z, y, x)
+        b, c = int(batch_dict["batch_size"]), feats.shape[-1]
+        lin = (coords[:, 0] * self.ny + coords[:, 2]) * self.nx + coords[:, 3]
+        dense = sc.grid_densify(b * self.ny * self.nx, feats, batch_dict["voxel_valid"], lin)
+        batch_dict["spatial_features"] = dense.reshape(b, self.ny, self.nx, c).permute(
+            0, 3, 1, 2).contiguous()
+        batch_dict["spatial_features_stride"] = 1
         return batch_dict
 
 

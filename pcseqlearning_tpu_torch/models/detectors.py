@@ -12,7 +12,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import sparse_conv as sc
-from .backbones_2d import BaseBEVBackbone, HeightCompression
+from .backbones_2d import BaseBEVBackbone, HeightCompression, PointPillarScatter
 from .backbones_3d import BACKBONES_3D
 from .dense_heads import CenterHead
 from .vfe import DynamicMeanVFE
@@ -70,19 +70,27 @@ class Detector3DTemplate(nn.Module):
         if vfe_name not in ("DynamicMeanVFE", "MeanVFE"):
             raise _unported(f"the VFE {vfe_name!r}")
         self.vfe = DynamicMeanVFE(voxel_size, point_cloud_range, voxel_cap)
-        b3d = cfg.get("BACKBONE_3D", {}).get("NAME")
-        if b3d not in BACKBONES_3D:
-            raise _unported(f"the 3D backbone {b3d!r}")
-        self.backbone_3d = BACKBONES_3D[b3d](
-            num_point_features, grid_size, voxel_cap,
-            dense_table_cap=dense_table_cap, generator=generator)
+        self.backbone_3d = None
+        bev_channels = num_point_features  # the VFE's width, for a pillar scatter
+        if "BACKBONE_3D" in cfg:
+            b3d = cfg["BACKBONE_3D"].get("NAME")
+            if b3d not in BACKBONES_3D:
+                raise _unported(f"the 3D backbone {b3d!r}")
+            self.backbone_3d = BACKBONES_3D[b3d](
+                num_point_features, grid_size, voxel_cap,
+                dense_table_cap=dense_table_cap, generator=generator)
+            bev_channels = (self.backbone_3d.conv_out.weight.shape[-1]
+                            * _conv_out_depth(grid_size[2]))
         m2b = cfg.get("MAP_TO_BEV", {"NAME": "HeightCompression"})["NAME"]
-        if m2b != "HeightCompression":
+        if m2b == "HeightCompression":
+            self.map_to_bev = HeightCompression()
+        elif m2b == "PointPillarScatter":
+            self.map_to_bev = PointPillarScatter(grid_size)
+        else:
             raise _unported(f"MAP_TO_BEV {m2b!r}")
-        self.map_to_bev = HeightCompression()
         b2d = cfg.get("BACKBONE_2D", {"NAME": "BaseBEVBackbone"})
         self.backbone_2d = BaseBEVBackbone(
-            self.backbone_3d.conv_out.weight.shape[-1] * _conv_out_depth(grid_size[2]),
+            bev_channels,
             layer_nums=b2d.get("LAYER_NUMS", [5, 5]),
             layer_strides=b2d.get("LAYER_STRIDES", [1, 2]),
             num_filters=b2d.get("NUM_FILTERS", [128, 256]),
@@ -95,12 +103,15 @@ class Detector3DTemplate(nn.Module):
         self.dense_head = CenterHeadWrap(
             input_channels=self.backbone_2d.num_bev_features, num_classes=num_classes,
             grid_size_xy=(grid_size[0], grid_size[1]), point_cloud_range=point_cloud_range,
-            feature_stride=int(head.get("FEATURE_MAP_STRIDE", 8)), generator=generator)
+            feature_stride=int(head.get("FEATURE_MAP_STRIDE",
+                                        1 if self.backbone_3d is None else 8)),
+            generator=generator)
 
     def forward(self, batch_dict):
         for module in (self.vfe, self.backbone_3d, self.map_to_bev, self.backbone_2d,
                        self.dense_head):
-            batch_dict = module(batch_dict)
+            if module is not None:
+                batch_dict = module(batch_dict)
         if self.training:
             batch_dict["losses"] = self.dense_head.loss(batch_dict)
         return batch_dict

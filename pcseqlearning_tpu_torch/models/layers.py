@@ -7,18 +7,70 @@ the JAX modules, the running variance follows the *biased* batch variance
 padding rows out of the moments, and the momentum convention is torch's
 (new = (1 - m) * old + m * batch) with m = 0.01 and eps = 1e-3, the
 reference's spconv norm settings. Training mode is ``module.training``.
-Cross-replica moments (the JAX ``bn_cross_replica``) wait for the
-data-parallel train step.
+
+Inside ``bn_cross_replica(group)`` every batch norm in training mode sums
+its moment accumulators over the ranks of ``group`` (the JAX
+``bn_cross_replica`` over a mapped axis, torch's SyncBatchNorm): first the
+count and the sum (one all-reduce), then the sum of squares about the
+global mean (a second one), so each rank normalises by the global batch's
+moments. The all-reduce carries the gradient: its backward all-reduces the
+cotangent, as psum's transpose is psum. With no group bound the moments
+are the local ones, computed as before.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 from torch import nn
 
 from ..ops import sparse_conv as sc
+from ..utils import dist_utils
+
+# the process group whose ranks' moments the batch norms sum, when one is bound
+_SYNC_GROUP = [None]
+
+
+@contextmanager
+def bn_cross_replica(group):
+    """Bind ``group`` for the batch norms' moments (None: local moments)."""
+    prev = _SYNC_GROUP[0]
+    _SYNC_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _SYNC_GROUP[0] = prev
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of a group; the backward sums the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return dist_utils.all_reduce(x.detach().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dist_utils.all_reduce(g.contiguous().clone(), group=ctx.group), None
+
+
+def _moment_sum(x):
+    """``x`` summed over the bound group's ranks."""
+    return _AllReduceSum.apply(x, _SYNC_GROUP[0])
+
+
+def _synced_moments(count, sums, centred_sq):
+    """(mean, var) from the global count (at least 1) and sum, then the
+    global sum of squares about the global mean: ``count`` [] and ``sums``
+    [C] are this rank's, ``centred_sq(mean)`` gives its [C] sum of
+    squares."""
+    cs = _moment_sum(torch.cat([count.reshape(1), sums]))
+    n = torch.clamp(cs[0], min=1.0)
+    mean = cs[1:] / n
+    return mean, _moment_sum(centred_sq(mean)) / n
 
 # flax's default kernel init, variance_scaling(1.0, "fan_in",
 # "truncated_normal"): a normal truncated at two standard deviations, the
@@ -57,9 +109,14 @@ class MaskedBatchNorm(_BatchNorm):
     def forward(self, x, valid):
         if self.training:
             w = valid.to(x.dtype)[:, None]
-            n = torch.clamp(w.sum(), min=1.0)
-            mean = (x * w).sum(0) / n
-            var = (w * (x - mean[None, :]) ** 2).sum(0) / n
+            if _SYNC_GROUP[0] is None:
+                n = torch.clamp(w.sum(), min=1.0)
+                mean = (x * w).sum(0) / n
+                var = (w * (x - mean[None, :]) ** 2).sum(0) / n
+            else:
+                mean, var = _synced_moments(
+                    w.sum(), (x * w).sum(0),
+                    lambda m: (w * (x - m[None, :]) ** 2).sum(0))
             self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -74,8 +131,13 @@ class BatchNorm2d(_BatchNorm):
     def forward(self, x):
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
-            mean = x.sum((0, 2, 3)) / n
-            var = ((x - mean[None, :, None, None]) ** 2).sum((0, 2, 3)) / n
+            if _SYNC_GROUP[0] is None:
+                mean = x.sum((0, 2, 3)) / n
+                var = ((x - mean[None, :, None, None]) ** 2).sum((0, 2, 3)) / n
+            else:
+                mean, var = _synced_moments(
+                    x.new_tensor(float(n)), x.sum((0, 2, 3)),
+                    lambda m: ((x - m[None, :, None, None]) ** 2).sum((0, 2, 3)))
             self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

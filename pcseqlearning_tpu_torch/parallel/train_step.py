@@ -1,5 +1,5 @@
-"""The detector's train step on one card (counterpart of
-pcseqlearning_tpu.parallel.train_step at dp = 1).
+"""The detector's train step, on one card or data-parallel over the ranks
+of a process group (counterpart of pcseqlearning_tpu.parallel.train_step).
 
 A step runs the training forward (which updates the batch norms' running
 statistics in place, as the JAX step keeps the forward's new
@@ -15,6 +15,26 @@ loaded state resumes the schedule), by default the one it makes for
 Batches use the JAX layout: dense per-sample tables [B, N_cap, ...] with
 validity masks (``dense_batch_from_collated``), flattened to the point
 table with batch indices (``_flatten_local``).
+
+Data parallel (``group`` of K ranks; the JAX step's shard_map over "dp"):
+every rank gets the same global batch and takes its rows [r B / K,
+(r + 1) B / K) (JAX's host input sharding; K must divide B). The forward
+runs under ``bn_cross_replica(group)``, so every batch norm normalises by
+the global batch's moments; the rank's own loss backpropagates (through the
+moments' all-reduces), and the gradients are summed over the ranks as one
+flat buffer and divided by K: the gradient of the mean of the ranks'
+losses, which is what JAX differentiates (its pmean'd loss). The losses and
+the batch norms' running statistics are averaged over the ranks (JAX's
+pmean), and ``grad_norm`` and the freezing act on the reduced gradients, so
+every rank takes the same update. One explicit all-reduce rather than
+torch's DistributedDataParallel: it is deterministic, needs no buckets and
+no unused-parameter search, and mirrors the JAX step line by line. The dp =
+K step equals the dp = 1 step only where every shard holds the same number
+of positives and of boxes (CenterHead normalises a shard's losses by its
+own counts), no voxel cap cuts a sample, and no point is padding or out of
+range (the VFE pools a shard's invalid points into one voxel of their own,
+whose features enter the batch norms' moments): in JAX as here.
+``dp_equivalence_issues`` checks a batch for all three.
 """
 
 from __future__ import annotations
@@ -28,7 +48,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.layers import bn_cross_replica
 from ..runtime.optimization import build_optimizer, global_norm
+from ..utils import dist_utils
+from .mesh import rows_of
 
 
 @dataclass
@@ -79,16 +102,34 @@ def _to_device(batch, device):
             for k in ("points", "feats", "valid", "gt_boxes")}
 
 
-def init_train_state(model, make_optimizer=None, device="cuda"):
+def init_train_state(model, make_optimizer=None, device="cuda", group=None):
     """TrainState for ``model`` on ``device`` (``"cuda"`` raises without a
     card); ``make_optimizer(params)`` (the first value that
-    ``build_optimizer`` returns) defaults to ``optax.adam(1e-3)``'s."""
+    ``build_optimizer`` returns) defaults to ``optax.adam(1e-3)``'s. With a
+    ``group``, every rank starts from rank 0's parameters and buffers."""
     dev = resolve_device(device)
     model = model.to(dev)
+    if group is not None:
+        with torch.no_grad():
+            for t in list(model.parameters()) + list(model.buffers()):
+                dist_utils.broadcast(t.data, 0, group)
     if make_optimizer is None:
         make_optimizer, _ = build_optimizer({"OPTIMIZER": "adam", "LR": 1e-3,
                                              "GRAD_NORM_CLIP": math.inf})
     return TrainState(model, make_optimizer(model.parameters()), 0)
+
+
+def _pmean_(tensors, group, world):
+    """Average ``tensors`` in place over the ranks, as one flat all-reduce."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist_utils.all_reduce(flat, group=group)
+    flat /= world
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def param_path(name):
@@ -96,24 +137,40 @@ def param_path(name):
     return name.replace(".", "/")
 
 
-def make_train_step(loss_key="rpn_loss", freeze_regexes=(), freeze_until=0, device="cuda"):
+def make_train_step(loss_key="rpn_loss", freeze_regexes=(), freeze_until=0, device="cuda",
+                    group=None):
     """The train step ``step(state, batch) -> (state, losses)`` on
     ``device`` (``"cuda"`` raises without a card). ``batch`` is the dense
     layout (NumPy or tensors); ``losses`` holds the head's losses and
     ``grad_norm``, as tensors on the device. ``freeze_regexes`` zero the
     gradients of parameters whose '/'-joined name matches while the step is
-    below ``freeze_until`` (the reference's ZEROGRAD_MODULES)."""
+    below ``freeze_until`` (the reference's ZEROGRAD_MODULES). With a
+    process ``group``, the step is data-parallel over its ranks (see the
+    module docstring); each rank passes the same global batch."""
     dev = resolve_device(device)
     patterns = [re.compile(r) for r in freeze_regexes]
+    rank, world = (0, 1) if group is None else dist_utils.get_dist_info(group)
 
     def train_step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
         model.train()
-        out = model(_flatten_local(**_to_device(batch, dev)))
+        if group is not None:
+            batch = {k: rows_of(batch[k], rank, world)
+                     for k in ("points", "feats", "valid", "gt_boxes")}
+        with bn_cross_replica(group):
+            out = model(_flatten_local(**_to_device(batch, dev)))
         losses = {k: v.detach() for k, v in out["losses"].items()}
         opt.zero_grad()
         out["losses"][loss_key].backward()
         params = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+        if group is not None:
+            _pmean_([p.grad for _, p in params], group, world)
+            names = list(losses)
+            stacked = torch.stack([losses[k] for k in names])
+            _pmean_([stacked], group, world)
+            losses = dict(zip(names, stacked.unbind()))
+            with torch.no_grad():
+                _pmean_([b for b in model.buffers() if b.is_floating_point()], group, world)
         if patterns and state.step < freeze_until:
             for name, p in params:
                 if any(pat.search(param_path(name)) for pat in patterns):
@@ -124,3 +181,49 @@ def make_train_step(loss_key="rpn_loss", freeze_regexes=(), freeze_until=0, devi
         return state, losses
 
     return train_step
+
+
+def dp_equivalence_issues(model, batch, world):
+    """(issues, fills): why the ``world``-rank step of ``batch`` (the
+    dense layout) would differ from its one-rank step, as strings, empty
+    when the two compute the same function (see the module docstring); and
+    the (voxels, cap) of every capped voxel table of the one-rank step (the
+    VFE's, then the strided sparse convs'), from one eval-mode forward of
+    the VFE and the 3D backbone over the whole batch. A table filled to its
+    cap counts as cut."""
+    from ..models.layers import SparseConvBlock
+
+    issues = []
+    pts = torch.as_tensor(batch["points"])
+    if pts.shape[0] % world:
+        return [f"a batch of {pts.shape[0]} does not split into {world} shards"], []
+    pcr = torch.tensor(model.vfe.point_cloud_range, dtype=pts.dtype)
+    inside = ((pts[..., 1:4] >= pcr[:3]) & (pts[..., 1:4] < pcr[3:])).all(-1)
+    bad = int((~(torch.as_tensor(batch["valid"]) & inside)).sum())
+    if bad:
+        issues.append(f"{bad} points are padding or out of range")
+    dev = next(model.parameters()).device
+    hm, _, _, mask = model.dense_head.head.build_targets(torch.as_tensor(batch["gt_boxes"]).to(dev))
+    positives = (hm == 1.0).sum((1, 2, 3)).reshape(world, -1).sum(1).tolist()
+    boxes = mask.sum(1).reshape(world, -1).sum(1).tolist()
+    if len(set(positives)) > 1 or len(set(boxes)) > 1:
+        issues.append(f"shards hold unequal positives {positives} or boxes {boxes}")
+    fills = []
+    hooks = [m.register_forward_hook(lambda m, i, o: fills.append((int(o.valid.sum()), m.out_cap)))
+             for m in model.modules() if isinstance(m, SparseConvBlock) and m.out_cap]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            bd = model.vfe(_flatten_local(**_to_device(batch, dev)))
+            fills.insert(0, (int(bd["voxel_valid"].sum()), model.vfe.voxel_cap))
+            if model.backbone_3d is not None:
+                model.backbone_3d(bd)
+    finally:
+        model.train(was_training)
+        for h in hooks:
+            h.remove()
+    cut = [f for f in fills if f[0] >= f[1]]
+    if cut:
+        issues.append(f"voxel tables filled to their caps (voxels, cap): {cut}")
+    return issues, fills

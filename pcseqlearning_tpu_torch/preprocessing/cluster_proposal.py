@@ -17,9 +17,21 @@ config key CC_GRAPH:
                       PCSEQ_PALLAS=0 / PCSEQ_PALLAS_SCAN=0
 
 ``convert.config_from_jax`` writes the key the JAX side would take. Nothing
-switches from one path to the other on its own. Proposals are scored per
-frame by best point-set IoU against the GT boxes, batched over frames. DIR,
-as in the JAX module, only creates its directory.
+switches from one path to the other on its own.
+
+With NUM_SHARDS > 1 (and HALO_CAP, default 4096), each chunk is x-sharded
+over NUM_SHARDS devices and labelled by the halo-exchange CC of
+``parallel.point_shard`` (kNN graph, as in JAX, whatever CC_GRAPH says),
+its components numbered by ``np.unique`` of the root ids; the devices are
+the ``devices`` argument (default: the visible cards on "cuda",
+NUM_SHARDS CPU slots on "cpu"), the counterpart of ``jax.devices()``. As in
+JAX, fewer devices than shards runs every chunk on one device, and a chunk
+whose slabs would be thinner than the radius runs on one device (each with
+a printed message); the halo points dropped at HALO_CAP are counted in the
+``proposal_halo_truncated`` telemetry, with a warning.
+
+Proposals are scored per frame by best point-set IoU against the GT boxes,
+batched over frames. DIR, as in the JAX module, only creates its directory.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ from ..ops import boxes as box_ops
 from ..ops import connected_components as cc
 from ..ops import hash_graph, segment_ops
 from ..ops.sorted_grid import connected_components_radius
+from ..parallel.mesh import make_mesh, visible_devices
+from ..parallel.point_shard import shard_points_by_x, sharded_connected_components
 from ..utils import telemetry
 from ..utils.edict import EDict
 from ..utils.frame_index import FrameIndex
@@ -127,13 +141,12 @@ class ClusterProposal:
     JAX module: GRAPH.RADIUS, GRAPH.MAX_NUM_NEIGHBORS, COMPONENT_KEYS,
     CHUNK_FRAMES, CELL_CAP, CC_NEIGHBORS (default min(MAX_NUM_NEIGHBORS,
     16)), CC_CELL_CAP (default min(CELL_CAP, 24); the JAX module reads 24
-    from PCSEQ_CELL_CAP when set) and DIR; the port's CC_GRAPH picks the CC
-    path. Not ported: NUM_SHARDS (multi-device)."""
+    from PCSEQ_CELL_CAP when set), NUM_SHARDS (default ``runtime_cfg``'s
+    ``num_shards``, else 1), HALO_CAP and DIR; the port's CC_GRAPH picks the
+    unsharded CC path. ``devices`` are the sharded path's devices."""
 
-    def __init__(self, model_cfg, runtime_cfg=None, device="cuda"):
+    def __init__(self, model_cfg, runtime_cfg=None, device="cuda", devices=None):
         self.model_cfg = EDict(model_cfg)
-        if "NUM_SHARDS" in self.model_cfg:
-            raise ValueError("ClusterProposal: NUM_SHARDS is not supported by the port")
         self.device = resolve_device(device)
         self.component_keys = list(self.model_cfg["COMPONENT_KEYS"])
         graph_cfg = self.model_cfg["GRAPH"]
@@ -149,6 +162,46 @@ class ClusterProposal:
         self.cc_neighbors = int(self.model_cfg.get(
             "CC_NEIGHBORS", min(int(graph_cfg.get("MAX_NUM_NEIGHBORS", 32)), 16)))
         self.cc_cell_cap = int(self.model_cfg.get("CC_CELL_CAP", min(cell_cap, 24)))
+        self.num_shards = int(self.model_cfg.get(
+            "NUM_SHARDS", runtime_cfg.get("num_shards", 1) if isinstance(runtime_cfg, dict) else 1))
+        self.halo_cap = int(self.model_cfg.get("HALO_CAP", 4096))
+        self.devices = devices
+        self._mesh = None
+
+    def _shard_mesh(self):
+        if self._mesh is None and self.num_shards > 1:
+            devs = self.devices
+            if devs is None:
+                devs = (visible_devices() if self.device.type == "cuda"
+                        else [self.device] * self.num_shards)
+            if len(devs) >= self.num_shards:
+                self._mesh = make_mesh(devices=devs[:self.num_shards], dp=self.num_shards)
+            else:
+                print(f"Cluster Proposal: NUM_SHARDS={self.num_shards} but only "
+                      f"{len(devs)} devices — falling back to single-device")
+                self.num_shards = 1
+        return self._mesh
+
+    def _propose_chunk_sharded(self, pts, radius):
+        """One chunk's (root gid [n], halo points truncated) by the sharded
+        CC, or None to run it on one device (no mesh, or a slab thinner
+        than the radius)."""
+        mesh = self._shard_mesh()
+        if mesh is None:
+            return None
+        try:
+            sp, gi, va = shard_points_by_x(pts.astype(np.float32), self.num_shards, radius=radius)
+        except ValueError as e:
+            print(f"Cluster Proposal: sharded CC fallback ({e})")
+            return None
+        roots, ntrunc = sharded_connected_components(
+            sp, gi, va, radius, mesh, k=self.cc_neighbors, halo_cap=self.halo_cap,
+            cell_cap=self.cc_cell_cap)
+        roots = roots.cpu().numpy().reshape(-1)
+        gi, va = gi.reshape(-1), va.reshape(-1)
+        root_by_row = np.empty(len(pts), np.int64)
+        root_by_row[gi[va]] = roots[va]
+        return root_by_row, int(ntrunc.sum())
 
     def propose_cluster(self, seq_dict):
         fxyz = np.asarray(seq_dict["point_fxyz"])
@@ -167,6 +220,16 @@ class ClusterProposal:
             pts = pts_all[torch.as_tensor(m, device=self.device)]
             span = float((pts_np[:, 1:3].max(0) - pts_np[:, 1:3].min(0)).max())
             for comp_key, radius in zip(self.component_keys, self.radii):
+                res = self._propose_chunk_sharded(pts_np, radius) if self.num_shards > 1 else None
+                if res is not None:
+                    _, comp_np = np.unique(res[0], return_inverse=True)
+                    components[comp_key][m] = comp_np + totals[comp_key]
+                    totals[comp_key] += int(comp_np.max()) + 1 if len(comp_np) else 0
+                    telemetry.add("proposal_halo_truncated", res[1])
+                    if res[1] > 0:
+                        print(f"Cluster Proposal {comp_key}: WARNING {res[1]} halo points "
+                              f"truncated at HALO_CAP={self.halo_cap}")
+                    continue
                 if self.cc_graph == "knn":
                     comp, num = knn_chunk_components(pts, radius, self.cc_neighbors,
                                                      self.cc_cell_cap)

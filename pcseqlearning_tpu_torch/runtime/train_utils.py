@@ -11,6 +11,11 @@ and saves every ``ckpt_save_interval`` epochs. ``train_one_epoch`` reads
 every loss to the host after each step, as the JAX loop does, and keeps the
 data and batch times in ``AverageMeter``s.
 
+Under data parallelism only rank 0 writes checkpoints (``save_checkpoint``
+and ``train_model`` take the rank), and ``train_model`` holds every rank
+at a barrier after each save, so an autoresume on any rank finds the same
+latest checkpoint.
+
 Resuming restores the model, the optimizer and the step, not the host's
 random draws (the augmentation and point shuffles): the JAX loop draws them
 from the global ``np.random``, which its checkpoint does not hold either,
@@ -25,6 +30,7 @@ import time
 
 import torch
 
+from ..utils import dist_utils
 from ..utils.common_utils import AverageMeter
 
 _PREFIX = "checkpoint_epoch_"
@@ -35,10 +41,13 @@ def list_checkpoints(ckpt_dir):
                   key=lambda p: int(p.rsplit("_", 1)[-1]))
 
 
-def save_checkpoint(state, ckpt_dir, step, max_keep=30):
+def save_checkpoint(state, ckpt_dir, step, max_keep=30, rank=0):
     """Write ``state`` as ``<ckpt_dir>/checkpoint_epoch_<step>`` (through a
     temporary file, so a checkpoint is whole or absent) and delete all but
-    the ``max_keep`` newest; returns the path."""
+    the ``max_keep`` newest; returns the path. A rank other than 0 writes
+    nothing and returns None."""
+    if rank != 0:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"{_PREFIX}{step}")
     tmp = os.path.join(os.path.abspath(ckpt_dir), f".{_PREFIX}{step}.tmp")  # not globbed
@@ -132,16 +141,19 @@ def train_one_epoch(train_step, state, loader, batch_converter, epoch, logger=No
 
 def train_model(train_step, state, loader, batch_converter, total_epochs, ckpt_dir, logger=None,
                 tb_writer=None, ckpt_save_interval=1, max_ckpt_save_num=30, start_epoch=0,
-                history=None):
-    """Epochs ``start_epoch`` .. ``total_epochs - 1``; returns the state."""
+                history=None, rank=0):
+    """Epochs ``start_epoch`` .. ``total_epochs - 1``; returns the state.
+    Rank ``rank`` of the default process group (if any) saves only when it
+    is rank 0; every rank waits at a barrier after each save."""
     for epoch in range(start_epoch, total_epochs):
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(epoch)
         state, _ = train_one_epoch(train_step, state, loader, batch_converter, epoch, logger,
                                    tb_writer, history=history)
         if (epoch + 1) % ckpt_save_interval == 0:
-            path = save_checkpoint(state, ckpt_dir, epoch + 1, max_ckpt_save_num)
-            if logger:
+            path = save_checkpoint(state, ckpt_dir, epoch + 1, max_ckpt_save_num, rank)
+            dist_utils.barrier()
+            if logger and path:
                 logger.info(f"saved checkpoint: {path}")
     return state
 

@@ -13,7 +13,14 @@ two-frame registration problem with a known rigid motion per cluster.
 train and val sequences of the detector CLIs' smoke run and tests, and
 ``detector_argv`` is those CLIs' command line over ``DETECTOR_CFGS``.
 ``bench_detector_batch`` is ``bench.py::bench_detector``'s batch for
-``DETECTOR_CFG`` (CenterPoint).
+``DETECTOR_CFG`` (CenterPoint); ``lattice_detector_batch`` is the same
+with its boxes on a lattice, one heatmap cell each. ``make_scene(...,
+ring=R)`` puts the clusters evenly on a circle of radius R instead and
+keeps their points' z in [0, 3.5] m (every draw unchanged): well apart,
+inside the detector's range under any global rotation and scaling, so each
+frame keeps all its boxes and points, each box on a heatmap cell of its own
+(the data-parallel checks need equal positives and no invalid point per
+sample).
 """
 
 from __future__ import annotations
@@ -25,13 +32,17 @@ import numpy as np
 import torch
 
 
-def make_scene(num_frames=20, points_per_frame=90_000, seed=0, moving_fraction=0.5):
+def make_scene(num_frames=20, points_per_frame=90_000, seed=0, moving_fraction=0.5,
+               n_clusters=24, ring=None):
     """Returns (seq [F * points_per_frame, 4] float32 (frame, x, y, z),
-    gt dict of per-frame boxes, track ids, velocities and moving flags)."""
+    gt dict of per-frame boxes, track ids, velocities and moving flags).
+    ``ring``: the clusters' centres evenly on a circle of that radius."""
     rng = np.random.RandomState(seed)
     frames = []
-    n_clusters = 24
     centers = rng.rand(n_clusters, 2) * 120 - 60
+    if ring is not None:
+        a = 2 * np.pi * np.arange(n_clusters) / n_clusters
+        centers = ring * np.stack([np.cos(a), np.sin(a)], 1)
     n_moving = int(round(n_clusters * moving_fraction))
     velo = np.zeros((n_clusters, 2))
     ang = rng.rand(n_moving) * 2 * np.pi
@@ -52,6 +63,8 @@ def make_scene(num_frames=20, points_per_frame=90_000, seed=0, moving_fraction=0
             pts = rng.randn(per, 3) * sizes[c] * np.array([1, 1, 0.5])
             pts[:, :2] += pos
             pts[:, 2] += sizes[c] + 0.5
+            if ring is not None:
+                pts[:, 2] = np.clip(pts[:, 2], 0.0, 3.5)
             objs.append(pts)
             gt_attr.append([pos[0], pos[1], sizes[c] + 0.5, 4 * sizes[c], 4 * sizes[c],
                             2 * sizes[c], 0.0])
@@ -194,13 +207,14 @@ DETECTOR_CFGS = (DETECTOR_CFG, "tools/cfgs/dataset_configs/waymo/detection_1swee
                  "tools/cfgs/optimizers/onecycle_centerpoint.yaml")
 
 
-def write_detector_sequences(root, frames, points, val_frames=0):
-    """A ``make_scene`` sequence (seed 0, every GT box a Vehicle) under
-    ``<root>/train`` and, when ``val_frames``, one of seed 1 under
-    ``<root>/val``: the paths of the two DATA_PATHs."""
+def write_detector_sequences(root, frames, points, val_frames=0, **scene_kw):
+    """A ``make_scene`` sequence (seed 0, every GT box a Vehicle; the
+    ``scene_kw`` passed on) under ``<root>/train`` and, when
+    ``val_frames``, one of seed 1 under ``<root>/val``: the paths of the two
+    DATA_PATHs."""
     root = Path(root)
     write_waymo_sequence(root / "train", *make_scene(num_frames=frames, points_per_frame=points,
-                                                     seed=0), "det_train")
+                                                     seed=0, **scene_kw), "det_train")
     if val_frames:
         write_waymo_sequence(root / "val", *make_scene(num_frames=val_frames,
                                                        points_per_frame=points, seed=1), "det_val")
@@ -234,3 +248,16 @@ def bench_detector_batch(batch_size, n_points, extent, seed=0):
         gt[b, :, 7] = rng.randint(1, 4, 64)
     return dict(points=pts, feats=feats, valid=np.ones((batch_size, n_points), bool),
                 gt_boxes=gt)
+
+
+def lattice_detector_batch(batch_size, n_points, extent, seed=0, boxes=64, spacing=2.0):
+    """``bench_detector_batch`` with its GT boxes moved onto a square
+    lattice of ``spacing`` m about the origin (the sizes and classes kept;
+    every box with a class), so that no two boxes of a sample share a
+    heatmap cell: every sample holds ``boxes`` positives."""
+    out = bench_detector_batch(batch_size, n_points, extent, seed)
+    side = int(np.ceil(np.sqrt(boxes)))
+    g = (np.arange(side) - (side - 1) / 2.0) * spacing
+    xy = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)[:boxes]
+    out["gt_boxes"][:, :boxes, 0:2] = xy + 0.3
+    return out

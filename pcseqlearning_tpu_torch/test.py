@@ -42,7 +42,7 @@ from .parallel.train_step import init_train_state
 from .runtime import train_utils
 from .runtime.optimization import build_optimizer
 from .train import runtime_cfg_of
-from .utils import common_utils
+from .utils import common_utils, dist_utils
 from .utils.edict import EDict
 
 POLL_SECONDS = 30
@@ -88,10 +88,12 @@ def eval_ckpt(state, loader, dataset, class_names, n_cap, device, logger=None):
         n_finite += sum(int(np.isfinite(d["pred_boxes"]).all(1).sum()) for d in pred_dicts)
     if logger is not None:
         logger.info(f"{n_boxes} predicted boxes, {n_boxes - n_finite} of them not finite")
-    # with several ranks, each would merge its shard's annos to rank 0 here
-    # (the JAX CLI's merge_results_dist, the identity at world size 1); it
-    # comes with the torch.distributed slice (ROADMAP.md, queue 1 item 3).
-    # A non-finite box raises in the metric's matching, as in the JAX CLI.
+    # with several ranks, each merges its loader shard's annos to rank 0 (as
+    # the JAX CLI; its world size, and this CLI's, is 1: no process group)
+    det_annos = dist_utils.merge_results_dist(det_annos, len(dataset))
+    if det_annos is None:  # a rank other than 0
+        return None, None
+    # a non-finite box raises in the metric's matching, as in the JAX CLI
     result_str, results = dataset.evaluation(det_annos, class_names)
     if logger is not None:
         logger.info(result_str)

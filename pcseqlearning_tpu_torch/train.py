@@ -36,6 +36,20 @@ JAX does. The loss is ``total_loss`` for a model with a ROI_HEAD,
 tensorboardX when it imports. ``main`` sets
 ``torch.backends.cudnn.deterministic``: cuDNN's default backward algorithms
 add in a run-to-run order, and with the flag a run repeats bit for bit.
+
+Data parallel: ``main`` first joins a process group
+(``dist_utils.init_distributed``: torchrun's environment, or a default group
+that the caller made; none at world size 1), and a CUDA rank runs on
+``cuda:LOCAL_RANK``::
+
+    torchrun --nproc_per_node K -m pcseqlearning_tpu_torch.train <model> <data> <optim> ...
+
+Every rank builds the same loader, so the same global batches arrive in
+the same order, and the train step takes the rank's rows of each
+(``parallel.train_step``, data-parallel over the default group; K must
+divide the batch size). Only rank 0 writes the log file, tensorboard and
+the checkpoints; every rank waits after each save, so an autoresume finds
+the same checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -56,7 +70,7 @@ from .models import build_network
 from .parallel.train_step import dense_batch_from_collated, init_train_state, make_train_step
 from .runtime import train_utils
 from .runtime.optimization import build_optimizer
-from .utils import common_utils
+from .utils import common_utils, dist_utils
 from .utils.edict import EDict
 
 SEED = 666
@@ -115,15 +129,21 @@ def main(argv=None):
     of ``train_utils.train_one_epoch``, ``start_epoch``, ``ckpt_dir`` and
     the ``schedule``."""
     args, cfg = parse_config(argv)
+    rank, world = dist_utils.init_distributed(device=args.device)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", dist_utils.local_rank())
     torch.backends.cudnn.deterministic = True
     if args.fix_random_seed:
         common_utils.set_random_seed(SEED)
     output_dir = Path(cfg.ROOT_DIR) / "output" / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
     ckpt_dir = output_dir / "ckpt"
-    output_dir.mkdir(parents=True, exist_ok=True)
-    log_file = output_dir / ("log_train_%s.txt" % datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
-    logger = common_utils.create_logger(str(log_file))
+    log_file = None
+    if rank == 0:
+        output_dir.mkdir(parents=True, exist_ok=True)
+        log_file = str(output_dir / ("log_train_%s.txt"
+                                     % datetime.datetime.now().strftime("%Y%m%d-%H%M%S")))
+    logger = common_utils.create_logger(log_file, rank=rank)
     logger.info("**********************Start logging**********************")
     log_config_to_file(cfg, logger=logger)
 
@@ -147,7 +167,8 @@ def main(argv=None):
     def converter(batch):
         return dense_batch_from_collated(batch, n_cap)
 
-    state = init_train_state(model, make_optimizer, device=device)
+    group = torch.distributed.group.WORLD if world > 1 else None
+    state = init_train_state(model, make_optimizer, device=device, group=group)
     start_epoch = 0
     latest = train_utils.latest_checkpoint(str(ckpt_dir))
     if args.ckpt or latest:
@@ -155,18 +176,20 @@ def main(argv=None):
         state = train_utils.load_checkpoint(path, state)
         start_epoch = int(path.rsplit("_", 1)[-1])
         logger.info(f"resumed from {path} at epoch {start_epoch}")
-    step = make_train_step(loss_key=loss_key_for(cfg.MODEL), device=device)
-    try:
-        from tensorboardX import SummaryWriter
+    step = make_train_step(loss_key=loss_key_for(cfg.MODEL), device=device, group=group)
+    tb = None
+    if rank == 0:
+        try:
+            from tensorboardX import SummaryWriter
 
-        tb = SummaryWriter(str(output_dir / "tensorboard"))
-    except ImportError:
-        tb = None
+            tb = SummaryWriter(str(output_dir / "tensorboard"))
+        except ImportError:
+            pass
     history = []
     state = train_utils.train_model(step, state, loader, converter, epochs, str(ckpt_dir),
                                     logger=logger, tb_writer=tb,
                                     max_ckpt_save_num=args.max_ckpt_save_num,
-                                    start_epoch=start_epoch, history=history)
+                                    start_epoch=start_epoch, history=history, rank=rank)
     if tb is not None:
         tb.close()
     logger.info("**********************Training done**********************")

@@ -5,8 +5,9 @@ The keys are the ones the benchmark record reads:
 ``proposal_scan_windows_truncated``, ``proposal_halo_truncated``,
 ``tracking_claim_windows_truncated`` and ``tracking_claim_overflow``. The
 port's CUDA kernels walk whole cell runs, so the scan-window counters are
-reported as 0 by construction; the halo counter belongs to the sharded CC,
-which this package does not have yet.
+reported as 0 by construction; the halo counter is the sharded CC's
+(``parallel.point_shard``), which also counts the bytes its halo exchange
+and pair gather copy (``shard_halo_bytes``, ``shard_gather_bytes``).
 """
 
 from __future__ import annotations

@@ -528,3 +528,70 @@ def test_cuda_detector_cli_train_loop_repeats(cuda_device, tmp_path):
     for k, ts in a["optimizer"]["moments"].items():
         for i, (x, y) in enumerate(zip(ts, b["optimizer"]["moments"][k])):
             assert torch.equal(x, y), (k, i)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_cc_matches_cpu(cuda_device):
+    """The x-sharded CC with the card standing for 4 devices equals the
+    same code over 4 CPU slots: root ids and truncation counts, also at a
+    halo cap small enough to truncate."""
+    from pcseqlearning_tpu_torch.parallel import make_mesh
+    from pcseqlearning_tpu_torch.parallel import point_shard as tps
+
+    rng = np.random.RandomState(0)
+    pts = _cloud(rng, 20_000, 2, 60.0)
+    sp, gi, va = tps.shard_points_by_x(pts, 4, radius=0.8)
+    for cap in (4096, 64):
+        card = tps.sharded_connected_components(sp, gi, va, 0.8, make_mesh([cuda_device] * 4),
+                                                k=16, halo_cap=cap, cell_cap=24)
+        cpu = tps.sharded_connected_components(sp, gi, va, 0.8, make_mesh(["cpu"] * 4),
+                                               k=16, halo_cap=cap, cell_cap=24)
+        assert card[0].is_cuda
+        assert torch.equal(card[0].cpu(), cpu[0]), cap
+        assert torch.equal(card[1].cpu(), cpu[1]), cap
+
+
+def _card_dp_rank(rank, world, weights):
+    import torch.distributed as dist
+
+    return _card_dp_steps(weights, dist.group.WORLD)
+
+
+def _card_dp_steps(weights, group):
+    from test_torch_dp_step import CFG, RUNTIME, dp_batch
+
+    from pcseqlearning_tpu_torch.models.detectors import build_detector
+    from pcseqlearning_tpu_torch.parallel import train_step as ts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    model = build_detector(CFG, RUNTIME, device="cpu")
+    model.load_state_dict(weights)
+    state = ts.init_train_state(model, device=dev, group=group)
+    step = ts.make_train_step(loss_key="center_loss", device=dev, group=group)
+    losses = []
+    for _ in range(2):
+        state, ls = step(state, dp_batch())
+        losses.append({k: float(v) for k, v in ls.items()})
+    return losses, {k: v.cpu() for k, v in state.model.state_dict().items()}
+
+
+@pytest.mark.cuda
+def test_cuda_dp_step_two_ranks_one_card(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card (collectives staged through the
+    host) against the one-rank step on the card: first-step losses to
+    1e-4, the ranks' parameters and buffers equal bit for bit."""
+    from test_torch_dp_step import CFG, RUNTIME
+
+    from pcseqlearning_tpu_torch.models.detectors import build_detector
+    from pcseqlearning_tpu_torch.utils import dist_utils
+
+    weights = build_detector(CFG, RUNTIME, device="cpu").state_dict()
+    ranks = dist_utils.launch_ranks(_card_dp_rank, 2, str(tmp_path / "store"), args=(weights,),
+                                    timeout=300, env={"LOCAL_RANK": "0"})
+    one = _card_dp_steps(weights, None)
+    for k, v in one[0][0].items():
+        assert abs(ranks[0][0][0][k] - v) / max(abs(v), 1e-3) < 1e-4, k
+    for k, v in ranks[0][1].items():
+        assert torch.equal(v, ranks[1][1][k]), k

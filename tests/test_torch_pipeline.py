@@ -126,7 +126,8 @@ def test_import_loads_no_jax():
         "       'models.backbones_2d', 'models.dense_heads', 'models.detectors',\n"
         "       'utils.loss_utils', 'parallel.train_step', 'tools.determinism_cost',\n"
         "       'tools.profile_detector_step', 'test', 'datasets.augmentor',\n"
-        "       'runtime.optimization', 'runtime.train_utils', 'runtime.eval_utils']\n"
+        "       'runtime.optimization', 'runtime.train_utils', 'runtime.eval_utils',\n"
+        "       'utils.dist_utils', 'parallel.mesh', 'parallel.point_shard']\n"
         "missing = [n for n in new if 'pcseqlearning_tpu_torch.' + n not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('pcseqlearning_tpu_torch')]))\n"
         "assert not bad and not missing, (bad, missing)\n"

@@ -90,4 +90,9 @@ def test_proposal_reports_no_truncation_and_rejects_unported_keys():
     tcp.ClusterProposal(BENCH["proposal"], device="cpu").propose_cluster(_above_ground_scene())
     assert telemetry.snapshot()["proposal_scan_windows_truncated"] == 0
     with pytest.raises(ValueError):
-        tcp.ClusterProposal(dict(BENCH["proposal"], NUM_SHARDS=2), device="cpu")
+        tcp.ClusterProposal(dict(BENCH["proposal"], CC_GRAPH="pallas"), device="cpu")
+    # NUM_SHARDS is ported: the x-sharded CC, its halo truncation reported
+    telemetry.reset()
+    tcp.ClusterProposal(dict(BENCH["proposal"], NUM_SHARDS=2), device="cpu").propose_cluster(
+        _above_ground_scene())
+    assert telemetry.snapshot()["proposal_halo_truncated"] == 0
