@@ -144,6 +144,25 @@ host cost.
                  runs printed
              Every line of this phase starts "# dist" and names the card and
              its power limit.
+ 10. anchor  the anchor detectors and Voxel R-CNN (second.yaml,
+             second_iou.yaml, pointpillar.yaml, voxel_rcnn.yaml, each MODEL
+             at full widths; TF32 off, cuDNN deterministic):
+             (a) one train step on the card against the CPU at phase 7(a)'s
+                 cell, in float32 and float64 (losses, gradients, batch
+                 statistics), then predict on both in float64 (valid masks,
+                 boxes and scores; the NMS pairs within 1e-5 of the
+                 threshold), the float32 predictions' distance printed
+             (b) bench_detector's cell (PointPillar at +-74.8 m): SECOND and
+                 Voxel R-CNN a FLOP-counted step and 8 timed steps, the
+                 first two repeated bit for bit; SECOND-IoU and PointPillar
+                 3 steps; each model's predict with its NMS seconds, NMS
+                 memory and kept boxes
+             (c) the training CLI with second.yaml and voxel_rcnn.yaml
+                 (detection_1sweep.yaml, adam_onecycle.yaml) for one epoch
+                 over phase 8's train frames, and the test CLI on a
+                 precise-BN copy of each checkpoint
+             Every line starts "# anchor detectors [<card>, <power limit>]";
+             no kernel of the port runs (launches 0 / 0 / 0).
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -953,13 +972,8 @@ def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
         ``dtype``."""
         model = build_network(cfg.MODEL, runtime, device=device).to(dtype)
         model.train()
-        bd = model.vfe(_flatten_local(**{k: torch.as_tensor(v).to(device)
-                                         for k, v in batch.items()}))
-        bd = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
-              for k, v in bd.items()}
-        for module in (model.backbone_3d, model.map_to_bev, model.backbone_2d, model.dense_head):
-            bd = module(bd)
-        losses = model.dense_head.loss(bd)
+        bd = model(_flatten_local(**{k: torch.as_tensor(v).to(device) for k, v in batch.items()}))
+        losses = bd["losses"]
         losses["center_loss"].backward()
         return (bd["voxel_coords"].cpu(), bd["voxel_valid"].cpu(),
                 {k: float(v.detach()) for k, v in losses.items()},
@@ -1849,6 +1863,456 @@ def dist_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     return errs
 
 
+ANCHOR_MODELS = (("second", "rpn_loss"), ("second_iou", "rpn_loss"), ("pointpillar", "rpn_loss"),
+                 ("voxel_rcnn", "total_loss"))
+# phase 10(a)'s bounds on the card's float32 gradients against the CPU's
+# float64, of each tensor's max |g|, by the loss differentiated: the anchor
+# models' rpn_loss to phase 7(a)'s 4e-2; Voxel R-CNN's to JAX's own float32
+# error at phase 7(a)'s cell (printed by tests/test_torch_detector_precision.py):
+# its center_loss (CenterPoint's BEV backbone and head) to the largest JAX
+# shows on that backbone and head (CenterPoint's, 8.55e-2), its total_loss,
+# which carries the RoI stage's float32 error into every tensor that stage
+# reaches, to the RoI stage's (2.125e-1); its RoI head's float32 batch
+# statistics, against the CPU's float64, to JAX's own error there (4.278e-5
+# of max(1, |v|), the same test)
+FP32_GRAD_LIMIT = {"rpn_loss": 4e-2, "center_loss": 8.55e-2, "total_loss": 0.2125}
+FP32_ROI_STAT_LIMIT = 4.278e-5
+
+
+class NmsMeter:
+    """Wraps ops.boxes.nms_bev while installed: its calls, their summed
+    seconds (synchronized on the card), the largest memory one call takes
+    above what was allocated when it started, and each call's candidates
+    (boxes [K, 7] as float64 on the host, valid [K], threshold)."""
+
+    def __init__(self, dev):
+        import torch
+
+        from pcseqlearning_tpu_torch.ops import boxes
+
+        self.calls, self.seconds, self.peak_bytes, self.mod = 0, 0.0, 0, boxes
+        self.inputs = []
+        self.orig = orig = boxes.nms_bev
+        cuda = dev.type == "cuda"
+
+        def timed(cand, scores, thresh, valid=None):
+            if cuda:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            keep = orig(cand, scores, thresh, valid=valid)
+            if cuda:
+                torch.cuda.synchronize()
+                self.peak_bytes = max(self.peak_bytes, torch.cuda.max_memory_allocated() - base)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.inputs.append((cand.detach().double().cpu(),
+                                torch.ones(len(cand), dtype=torch.bool) if valid is None
+                                else valid.cpu(), thresh))
+            return keep
+
+        boxes.nms_bev = timed
+
+    def restore(self):
+        self.mod.nms_bev = self.orig
+
+
+def set_distance(a, b):
+    """The largest distance from a row of either of a [N, D] and b [M, D]
+    to its nearest row of the other, each difference over max(1, |value|):
+    the two as sets, their order aside (inf where one alone is empty)."""
+    if not (len(a) and len(b)):
+        return 0.0 if len(a) == len(b) else float("inf")
+    d = ((a[:, None] - b[None]).abs()
+         / a[:, None].abs().maximum(b[None].abs()).clamp(min=1.0)).amax(-1)
+    return float(max(d.amin(1).max(), d.amin(0).max()))
+
+
+def near_threshold_pairs(cand, valid, thr, eps=1e-5):
+    """Pairs of valid candidates (each counted once) whose IoU lies within
+    ``eps`` of ``thr``: the decisions a rounding can flip."""
+    from pcseqlearning_tpu_torch.ops.boxes import iou_bev_above
+
+    b = cand[valid]
+    band = iou_bev_above(b, thr - eps) & ~iou_bev_above(b, thr + eps)
+    return int((band | band.T).triu(1).sum())
+
+
+def predict_gaps(card, cpu):
+    """Card against CPU ``predict`` outputs (boxes, scores, valid): whether
+    the valid masks are equal, and over the rows valid in both, per sample
+    as sets, ``set_distance`` of the boxes and the largest difference of
+    the sorted scores."""
+    import torch
+
+    (cb, cs, cv), (pb, ps, pv) = card, cpu
+    box_err = score_err = 0.0
+    for b in range(pb.shape[0]):
+        both = cv[b] & pv[b]
+        box_err = max(box_err, set_distance(cb[b][both], pb[b][both]))
+        if both.any():
+            score_err = max(score_err, float((cs[b][both].sort().values
+                                              - ps[b][both].sort().values).abs().max()))
+    return torch.equal(cv, pv), box_err, score_err
+
+
+def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
+    """Phase 10: SECOND, SECOND-IoU, PointPillar and Voxel R-CNN as
+    second.yaml, second_iou.yaml, pointpillar.yaml and voxel_rcnn.yaml's
+    MODELs build them (full widths), TF32 off and cuDNN deterministic.
+    (a) Card against CPU at phase 7(a)'s cut cell, one train step each:
+    float32 losses (1e-4 relative) and batch statistics (1e-5 of max(1,
+    the buffer's largest value)) against the CPU's float32 (Voxel R-CNN's
+    RoI head's statistics against the CPU's float64, within JAX's own
+    float32 error there, ``FP32_ROI_STAT_LIMIT``); float64 losses
+    (1e-4), gradients (1e-3 of each tensor's max), batch statistics (1e-5)
+    and Voxel R-CNN's RoIs (1e-4 of max(1, |value|), as sets) against the
+    CPU's float64; the card's float32 gradients against the CPU's float64,
+    of each tensor's max: the anchor models' within phase 7(a)'s 4e-2,
+    Voxel R-CNN's center_loss's and total_loss's each within JAX's own
+    float32 error (``FP32_GRAD_LIMIT``). Then predict on both in
+    float64: valid masks equal (a difference only where a pair of the CPU's
+    NMS candidates has an IoU within 1e-5 of the threshold; those pairs are
+    counted and printed), and on the rows valid in both, as sets, boxes
+    within 1e-4 (of max(1, |value|)) and sorted scores within 1e-5; the
+    float32 predictions' distances are printed, not held. (b) bench_detector's
+    cell (PointPillar's range cut to +-74.8 m: at +-74.88 m its 1498-cell
+    pillar grid gives BEV maps of 749, 750 and 752 cells after upsampling,
+    which no concatenation takes, in JAX as here): SECOND and Voxel R-CNN
+    a FLOP-counted first step then 8 steps, steps/s, peak memory, MFU, the
+    losses finite and falling, and the first two steps again from the same
+    seed, equal bit for bit; SECOND-IoU and PointPillar 3 steps, losses
+    finite, steps/s and peak memory; each model's predict on the batch: NMS
+    seconds and calls, the largest memory one NMS call takes, kept boxes.
+    (c) The CLIs: python -m pcseqlearning_tpu_torch.train with second.yaml
+    and voxel_rcnn.yaml, detection_1sweep.yaml and adam_onecycle.yaml, one
+    epoch at batch 2 with --fix_random_seed over phase 8's train frames:
+    losses finite, the checkpoint written; then the test CLI on a
+    precise-BN copy of each checkpoint: every predicted box finite, every
+    Vehicle AP/APH value finite. No kernel of the port runs here (all three
+    launch counts 0). Every line names the card and its power limit.
+    Returns failures."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pcseqlearning_tpu_torch import test as test_cli
+    from pcseqlearning_tpu_torch import train
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.datasets import build_dataloader
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, init_train_state,
+                                                             make_train_step)
+    from pcseqlearning_tpu_torch.scene import (bench_detector_batch, detector_argv,
+                                               write_detector_sequences)
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    tag = f"# anchor detectors [{gpu_line}]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    log(f"{tag}: allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+        f"{torch.backends.cudnn.allow_tf32}; cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic}")
+    (a_extent, a_points, a_cap), (b_extent, b_points, b_cap, b_batch, b_steps), cli = sizes
+    cfgs = {m: cfg_from_yaml_file(str(repo / f"tools/cfgs/waymo_models/{m}.yaml"), EDict())
+            for m, _ in ANCHOR_MODELS}
+    errs = []
+    for fn in kernels.values():
+        fn.launches = 0
+
+    def runtime_of(model, extent, cap):
+        return dict(data_cfg={"POINT_CLOUD_RANGE": [-extent, -extent, -2.0, extent, extent, 4.0],
+                              "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                    class_names=list(cfgs[model].CLASS_NAMES), voxel_cap=cap)
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    # ---- (a) card against CPU
+    batch = bench_detector_batch(2, a_points, a_extent - 0.5, seed=1)
+    for model, key in ANCHOR_MODELS:
+        runtime = runtime_of(model, a_extent, a_cap)
+
+        def one_step(device, dtype):
+            """One training forward and backward from the seeded weights
+            (the VFE's cells in float32, the network in ``dtype``), then
+            predict, with the candidates of each NMS it ran."""
+            net = build_network(cfgs[model].MODEL, runtime, device=device).to(dtype)
+            net.train()
+            bd = net(_flatten_local(**{k: torch.as_tensor(v).to(device)
+                                       for k, v in batch.items()}))
+            params = dict(net.named_parameters())
+            first = None
+            if net.roi_head is not None:
+                gs = torch.autograd.grad(bd["losses"]["center_loss"], list(params.values()),
+                                         retain_graph=True, allow_unused=True)
+                first = {n: g.double().cpu() for n, g in zip(params, gs) if g is not None}
+            bd["losses"][key].backward()
+            grads = {n: p.grad.double().cpu() for n, p in params.items()}
+            res = dict(losses={k: float(v.detach()) for k, v in bd["losses"].items()},
+                       grads=grads, first_grads=first or grads,
+                       stats={n: b.double().cpu() for n, b in net.named_buffers()},
+                       rois=None if first is None else bd["rois"].detach().double().cpu())
+            meter = NmsMeter(torch.device(device))
+            try:
+                _, boxes, scores, _, valid = net.predict(_flatten_local(
+                    **{k: torch.as_tensor(v).to(device) for k, v in batch.items()}))
+            finally:
+                meter.restore()
+            res.update(pred=(boxes.double().cpu(), scores.double().cpu(), valid.cpu()),
+                       nms=meter.inputs)
+            return res
+
+        t0 = time.perf_counter()
+        card, card64 = one_step(dev, torch.float32), one_step(dev, torch.float64)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, cpu64 = (one_step(torch.device("cpu"), torch.float32),
+                      one_step(torch.device("cpu"), torch.float64))
+        t_cpu = time.perf_counter() - t0
+
+        def grad_errs(a, b, part="grads"):
+            return {n: float((a[part][n] - g).abs().max() / max(float(g.abs().max()), 1e-30))
+                    for n, g in b[part].items()}
+
+        def stat_errs(a, b):
+            """Each buffer's largest error over max(1, its largest value)."""
+            return {n: float((a["stats"][n] - v).abs().max() / max(1.0, float(v.abs().max())))
+                    for n, v in b["stats"].items()}
+
+        def worst(errs, k=3):
+            return sorted(errs.items(), key=lambda kv: -kv[1])[:k]
+
+        loss_err = max(rel(card["losses"][k], v) for k, v in cpu["losses"].items())
+        loss64 = max(rel(card64["losses"][k], v) for k, v in cpu64["losses"].items())
+        in_roi_head = "roi_head."
+        stats32 = {n: e for n, e in stat_errs(card, cpu).items() if not n.startswith(in_roi_head)}
+        stat_err, stat64 = max(stats32.values()), max(stat_errs(card64, cpu64).values())
+        # the RoI head's float32 statistics against float64: the card's and,
+        # as a control, the CPU's
+        roi_stats32, cpu_roi_stats32 = ({n: e for n, e in stat_errs(x, cpu64).items()
+                                         if n.startswith(in_roi_head)} for x in (card, cpu))
+        grad64 = max(grad_errs(card64, cpu64).values())
+        # float32 against float64: the card's and, as a control, the CPU's
+        first32, cpu_first32 = (grad_errs(x, cpu64, "first_grads") for x in (card, cpu))
+        total32, cpu_total32 = (grad_errs(x, cpu64) for x in (card, cpu))
+        two_stage = cpu["rois"] is not None
+        rois64, rois32 = ((max(set_distance(a, b) for a, b in zip(x["rois"], y["rois"]))
+                           if two_stage else None) for x, y in ((card64, cpu64), (card, cpu)))
+        valid_eq, box_err, score_err = predict_gaps(card64["pred"], cpu64["pred"])
+        valid_eq32, box_err32, score_err32 = predict_gaps(card["pred"], cpu["pred"])
+        near = [near_threshold_pairs(*c) for c in cpu64["nms"]]
+        first_key = "center_loss" if two_stage else key
+        fp32_grads = {first_key: dict(card=max(first32.values()), cpu=max(cpu_first32.values()),
+                                      limit=FP32_GRAD_LIMIT[first_key], worst_card=worst(first32))}
+        if two_stage:
+            fp32_grads["total_loss"] = dict(
+                card=max(total32.values()), cpu=max(cpu_total32.values()),
+                limit=FP32_GRAD_LIMIT[key], worst_card=worst(total32),
+                worst_card_outside_roi_head=worst({n: e for n, e in total32.items()
+                                                   if not n.startswith(in_roi_head)}))
+        rec = dict(model=model, range_m=a_extent, points=[2, a_points], voxel_cap=a_cap,
+                   losses_card=card["losses"], loss_rel_err=loss_err,
+                   batch_stats_err_of_max_1=stat_err, worst_batch_stats=worst(stats32, 2),
+                   roi_head_fp32_batch_stats_against_cpu_fp64=dict(
+                       card=max(roi_stats32.values()), cpu=max(cpu_roi_stats32.values()),
+                       limit=FP32_ROI_STAT_LIMIT) if two_stage else None,
+                   fp64=dict(loss_rel_err=loss64, grad_err_of_max=grad64,
+                             batch_stats_err_of_max_1=stat64, rois_set_distance=rois64),
+                   fp32_grad_err_of_max_against_cpu_fp64=fp32_grads,
+                   rois_set_distance_fp32=rois32,
+                   predict_fp64=dict(valid=[int(card64["pred"][2].sum()),
+                                            int(cpu64["pred"][2].sum())],
+                                     valid_equal=valid_eq, box_set_distance=box_err,
+                                     score_err=score_err, nms_calls=len(near),
+                                     nms_pairs_near_threshold=near),
+                   predict_fp32=dict(valid=[int(card["pred"][2].sum()),
+                                            int(cpu["pred"][2].sum())],
+                                     valid_equal=valid_eq32, box_set_distance=box_err32,
+                                     score_err=score_err32),
+                   seconds_card=t_card, seconds_cpu=t_cpu)
+        log(f"{tag} (a) card vs cpu {json.dumps(rec)}")
+        if not (loss_err <= 1e-4 and stat_err <= 1e-5):
+            errs.append(f"{model} (a) float32: loss {loss_err:.2e} (1e-4), batch stats "
+                        f"{stat_err:.2e} (1e-5 of max(1, |v|))")
+        if not (loss64 <= 1e-4 and grad64 <= 1e-3 and stat64 <= 1e-5):
+            errs.append(f"{model} (a) float64: loss {loss64:.2e} (1e-4), grad {grad64:.2e} "
+                        f"(1e-3 of max), batch stats {stat64:.2e} (1e-5 of max(1, |v|))")
+        if two_stage and not max(roi_stats32.values()) <= FP32_ROI_STAT_LIMIT:
+            errs.append(f"{model} (a) float32: RoI-head batch stats "
+                        f"{max(roi_stats32.values()):.2e} from the CPU's float64 "
+                        f"({FP32_ROI_STAT_LIMIT}): {worst(roi_stats32)}")
+        if two_stage and not rois64 <= 1e-4:
+            errs.append(f"{model} (a) float64: the RoIs {rois64:.2e} apart as sets (1e-4)")
+        if not max(first32.values()) <= FP32_GRAD_LIMIT[first_key]:
+            errs.append(f"{model} (a): float32 {first_key} gradients {max(first32.values()):.2e} "
+                        f"of a tensor's max from the CPU's float64 "
+                        f"({FP32_GRAD_LIMIT[first_key]}): {worst(first32)}")
+        if two_stage and not max(total32.values()) <= FP32_GRAD_LIMIT[key]:
+            errs.append(f"{model} (a): float32 total_loss gradients {max(total32.values()):.2e} "
+                        f"of a tensor's max from the CPU's float64 ({FP32_GRAD_LIMIT[key]}): "
+                        f"{worst(total32)}")
+        if not valid_eq and not sum(near):
+            errs.append(f"{model} (a) float64 predict: the valid masks differ and no NMS pair "
+                        f"lies within 1e-5 of the threshold")
+        if valid_eq and not (box_err <= 1e-4 and score_err <= 1e-5):
+            errs.append(f"{model} (a) float64 predict: boxes {box_err:.2e} (1e-4), scores "
+                        f"{score_err:.2e} (1e-5) apart")
+        del card, card64, cpu, cpu64
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---- (b) bench_detector's cell, full width
+    for model, key in ANCHOR_MODELS:
+        extent = b_extent
+        if model == "pointpillar":  # the largest range whose grid a multiple of 8 divides
+            extent = round((round(2 * b_extent / 0.1) // 8) * 8 * 0.1 / 2, 4)
+        runtime = runtime_of(model, extent, b_cap)
+        dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in bench_detector_batch(
+            b_batch, b_points, 70.0 if b_extent > 70 else b_extent - 0.5).items()}
+        full = model in ("second", "voxel_rcnn")
+        steps = b_steps if full else 2
+        step = make_train_step(loss_key=key, device=dev)
+        state = init_train_state(build_network(cfgs[model].MODEL, runtime, device=dev), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as counter:
+            state, losses = step(state, dev_batch)
+        first_s = time.perf_counter() - t0
+        flops = float(counter.get_total_flops())
+        loss_seq, durs, two = [float(losses[key])], [], [losses]
+        t_prev = time.perf_counter()
+        for i in range(steps):
+            state, losses = step(state, dev_batch)
+            loss_seq.append(float(losses[key]))  # a host read each step, as bench.py
+            now = time.perf_counter()
+            durs.append(now - t_prev)
+            t_prev = now
+            if i == 0:
+                two.append(losses)
+                first_run = ([{k: float(v) for k, v in ls.items()} for ls in two],
+                             {n: p.grad.clone() for n, p in state.model.named_parameters()},
+                             {n: p.detach().clone() for n, p in state.model.named_parameters()})
+        dt = sorted(durs[1:] or durs)[len(durs[1:] or durs) // 2]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        meter = NmsMeter(dev)
+        try:
+            t0 = time.perf_counter()
+            _, boxes, scores, labels, valid = state.model.predict(_flatten_local(**dev_batch))
+            predict_s = time.perf_counter() - t0
+        finally:
+            meter.restore()
+        kept = valid.sum(1).tolist()
+        finite_boxes = bool(torch.isfinite(boxes[valid]).all())
+        repeats, differing = None, []
+        if full:
+            state = init_train_state(build_network(cfgs[model].MODEL, runtime, device=dev),
+                                     device=dev)
+            two = []
+            for _ in range(2):
+                state, losses = step(state, dev_batch)
+                two.append(losses)
+            again = ([{k: float(v) for k, v in ls.items()} for ls in two],
+                     {n: p.grad.clone() for n, p in state.model.named_parameters()},
+                     {n: p.detach().clone() for n, p in state.model.named_parameters()})
+            differing = [n for n in first_run[1]
+                         if not (torch.equal(first_run[1][n], again[1][n])
+                                 and torch.equal(first_run[2][n], again[2][n]))]
+            repeats = first_run[0] == again[0] and not differing
+            del again
+        del state, first_run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec = dict(model=model, cell="bench_detector", range_m=extent, points=[b_batch, b_points],
+                   voxel_cap=b_cap, steps=steps, first_step_s=first_s, step_s=durs,
+                   steps_per_s=1.0 / dt, peak_gb=peak_gb, losses=loss_seq,
+                   flops_per_step=flops, mfu=flops / dt / PEAK_FP32_FLOPS if dev.type == "cuda"
+                   else None, mfu_peak="67 TFLOP/s float32, TF32 off", predict_s=predict_s,
+                   nms_calls=meter.calls, nms_s=meter.seconds,
+                   nms_peak_gb=meter.peak_bytes / 1e9, kept_boxes=kept,
+                   kept_boxes_finite=finite_boxes, two_steps_repeat_bit_for_bit=repeats,
+                   tensors_differing_on_repeat=differing[:5])
+        log(f"{tag} (b) {json.dumps(rec)}")
+        if not all(np.isfinite(loss_seq)) or (full and not loss_seq[-1] < loss_seq[0]):
+            errs.append(f"{model} (b): losses {loss_seq} not finite{' and falling' * full}")
+        if full and not repeats:
+            errs.append(f"{model} (b): two steps from the same seed differ in {differing[:5]}")
+
+    # ---- (c) the CLIs
+    frames, points, val_frames, batch_size = cli
+    shrink = [] if not rehearse else [
+        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
+        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
+        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
+        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
+        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_anchor_") as root:
+        t0 = time.perf_counter()
+        train_path, val_path = write_detector_sequences(root, frames, points, val_frames)
+        log(f"{tag} (c): wrote {frames} train and {val_frames} val frames x {points} points in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for model, key in (("second", "rpn_loss"), ("voxel_rcnn", "total_loss")):
+            paths = (f"tools/cfgs/waymo_models/{model}.yaml",
+                     "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
+                     "tools/cfgs/optimizers/adam_onecycle.yaml")
+            t0 = time.perf_counter()
+            res = train.main(detector_argv(repo, train_path, root, dev.type, "--batch_size",
+                                           str(batch_size), "--epochs", "1", "--fix_random_seed",
+                                           "--extra_tag", "p10", cfgs=paths, overrides=shrink))
+            train_s = time.perf_counter() - t0
+            hist = res["history"]
+            summary = summarize(hist)
+            ckpts = sorted(p.name for p in Path(res["ckpt_dir"]).iterdir())
+            test_argv = detector_argv(repo, val_path, root, dev.type, "--extra_tag", "p10",
+                                      cfgs=paths, overrides=shrink)
+            _, tcfg = test_cli.parse_config(test_argv)
+            n_cap = int(tcfg.MODEL.POINT_CAP)
+            val_set, val_loader = build_dataloader(tcfg.DATA_CONFIG, tcfg.CLASS_NAMES, 1,
+                                                   training=False)
+            # the precise-BN statistics come from the train frames, as in phase 8(d)
+            fit_cfg = test_cli.parse_config(detector_argv(repo, train_path, root, dev.type,
+                                                          cfgs=paths, overrides=shrink))[1]
+            _, fit_loader = build_dataloader(fit_cfg.DATA_CONFIG, fit_cfg.CLASS_NAMES, batch_size,
+                                             training=False)
+            net = build_network(tcfg.MODEL, train.runtime_cfg_of(tcfg), val_set, device=dev)
+            precise = Path(root) / "precise_bn" / model / "checkpoint_epoch_1"
+            precise_bn_copy(Path(res["ckpt_dir"]) / "checkpoint_epoch_1", precise, net,
+                            fit_loader, n_cap, dev)
+            net.load_state_dict(torch.load(precise, map_location="cpu",
+                                           weights_only=True)["model"])
+            stats = eval_forward_stats(net, val_loader, n_cap, dev)
+            del net
+            t1 = time.perf_counter()
+            table = next(iter(test_cli.main(test_argv[:3] + ["--ckpt", str(precise)]
+                                            + test_argv[3:]).values()))
+            vehicle = {k: v for k, v in table.items() if k.startswith("Vehicle/")}
+            log(f"{tag} (c) {model}: train.main {train_s:.1f} s {json.dumps(summary)}; "
+                f"checkpoints {ckpts}; precise-BN copy's eval-mode predict {json.dumps(stats)}; "
+                f"test.main {time.perf_counter() - t1:.1f} s, Vehicle AP/APH "
+                f"{json.dumps(vehicle)}")
+            if not all(math.isfinite(h["losses"][key]) for h in hist):
+                errs.append(f"{model} (c): a loss is not finite")
+            if ckpts != ["checkpoint_epoch_1"]:
+                errs.append(f"{model} (c): checkpoints {ckpts}")
+            if stats["not_finite"] or not stats["boxes"]:
+                errs.append(f"{model} (c): the precise-BN checkpoint predicts {stats}")
+            if not vehicle or not all(math.isfinite(v) for v in vehicle.values()):
+                errs.append(f"{model} (c): Vehicle AP/APH not finite: {vehicle}")
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{tag}: kernel launches in phase 10 {json.dumps(launches)}")
+    if any(launches.values()):
+        errs.append(f"phase 10 launched a kernel of the extraction path: {launches}")
+    return errs
+
+
 def arg_value(flag, default):
     """The value after ``flag`` on the command line, else ``default``."""
     args = sys.argv[1:]
@@ -1872,6 +2336,7 @@ def main():
         walk_size, rigid_sizes, entry_size = (10, 2500), (60, 400), (4, 600)
         detector_sizes = (3.2, 500, 1024), (3.2, 500, 1024, 2, 3)
         cli_size = (4, 3000, 2, 2)
+        anchor_sizes = ((3.2, 500, 1024), (3.2, 500, 1024, 2, 2), cli_size)
         dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
             "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
             "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
@@ -1901,6 +2366,9 @@ def main():
         # ~114k against cap / 4); (c) the bench scene's first 20 frames
         dist_sizes = ((19.2, 20_000, 300_000), (4, 40_000, 30_000, 600_000, []),
                       (20, 90_000, 2, 10))
+        # phase 10: (a) phase 7(a)'s cell, (b) bench_detector's, (c) phase 8's
+        # train frames at batch 2, one epoch
+        anchor_sizes = (detector_sizes[0], detector_sizes[1], (16, 160_000, 4, 2))
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -2150,6 +2618,13 @@ def main():
     t0 = time.perf_counter()
     errs = dist_phase(repo, dev, gpu_line, kernels, rehearse, dist_sizes)
     log(f"# phase 9: {time.perf_counter() - t0:.1f} s")
+    if errs:
+        fail("; ".join(errs))
+
+    # ---- 10. the anchor detectors and Voxel R-CNN -----------------------------
+    t0 = time.perf_counter()
+    errs = anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, anchor_sizes)
+    log(f"# phase 10: {time.perf_counter() - t0:.1f} s")
     if errs:
         fail("; ".join(errs))
 

@@ -25,6 +25,7 @@ pinned to the same settings and the same path.
 from __future__ import annotations
 
 import os
+import re
 
 from .utils.edict import EDict
 
@@ -55,13 +56,27 @@ def config_from_jax(cfg, env=os.environ, jax_backend="tpu"):
 
 
 # flax module names -> the port's module names (layer names the two share,
-# BaseBEVBackbone's and the backbones', are not listed)
+# BaseBEVBackbone's, the backbones', the anchor head's convs and the RoI
+# head's pooling layers, are not listed)
 _FLAX_NAMES = {"MaskedBatchNorm_0": "bn", "SubMConvBlock_0": "conv0", "SubMConvBlock_1": "conv1",
                "BatchNorm2d_0": "shared_bn", "Conv_0": "shared_conv", "Conv_1": "hm",
                "Conv_2": "center", "Conv_3": "center_z", "Conv_4": "dim", "Conv_5": "rot"}
 _FLAX_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
                 ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
                 ("batch_stats", "var"): "running_var"}
+
+
+# flax's auto-named layers of the pillar VFE's PFN (under "vfe") and of the
+# RoI head's FC trunk (under "head"): Dense_i -> linear{i},
+# MaskedBatchNorm_i -> norm{i}
+_AUTO_NAMED = re.compile(r"(Dense|MaskedBatchNorm)_(\d+)$")
+
+
+def _port_name(parent, name):
+    hit = _AUTO_NAMED.match(name)
+    if hit and parent in ("vfe", "head"):
+        return ("linear" if hit[1] == "Dense" else "norm") + hit[2]
+    return _FLAX_NAMES.get(name, name)
 
 
 def _flat_leaves(tree, prefix=()):
@@ -78,7 +93,8 @@ def detector_params_from_flax(variables):
     exactly once.
 
     Layouts: sparse conv kernels stay [K, Cin, Cout] (offsets in
-    ``itertools.product`` (dz, dy, dx) order); flax Conv kernels (H, W, in,
+    ``itertools.product`` (dz, dy, dx) order); flax Dense kernels (in, out)
+    become torch's Linear (out, in); flax Conv kernels (H, W, in,
     out) become torch's (out, in, H, W); flax ConvTranspose kernels (u, u,
     in, out) become torch's (in, out, u, u) flipped in both spatial axes,
     since flax's transposed conv (``transpose_kernel=False``) does not flip
@@ -90,8 +106,11 @@ def detector_params_from_flax(variables):
     out = {}
     for path, leaf in _flat_leaves(variables):
         coll, *mods, name = path
-        key = ".".join([_FLAX_NAMES.get(m, m) for m in mods] + [_FLAX_LEAVES[(coll, name)]])
+        key = ".".join([_port_name(p, m) for p, m in zip([""] + mods, mods)]
+                       + [_FLAX_LEAVES[(coll, name)]])
         a = np.asarray(leaf)
+        if name == "kernel" and a.ndim == 2:
+            a = a.T
         if name == "kernel" and a.ndim == 4:
             transposed = mods[-1].startswith("deblock") and a.shape[0] > 1
             a = a[::-1, ::-1].transpose(2, 3, 0, 1) if transposed else a.transpose(3, 2, 0, 1)

@@ -1,9 +1,12 @@
 """Model registry (counterpart of pcseqlearning_tpu.models): ``build_network``
 dispatches on MODEL.NAME. The port has the extraction pipeline's entry model,
-``SimpleReg``, and the CenterPoint detector; the other detectors are not
-ported yet."""
+``SimpleReg``, and the detectors CenterPoint, SECONDNet, SECONDNetIoU,
+PointPillar and VoxelRCNN; the other detectors raise NotImplementedError
+naming the ROADMAP.md item that ports them."""
 
 from __future__ import annotations
+
+DETECTORS = ("CenterPoint", "SECONDNet", "SECONDNetIoU", "PointPillar", "VoxelRCNN")
 
 
 def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
@@ -11,18 +14,17 @@ def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
     from ``runtime_cfg`` (``data_cfg``, ``class_names``, ``voxel_cap``, as the
     JAX ``build_detector`` does) and the VFE's width from ``dataset``'s point
     feature encoding when a dataset is given."""
+    from .detectors import build_detector, unported
+
     name = model_cfg["NAME"]
     if name == "SimpleReg":
         from ..preprocessing import SimpleReg
 
         return SimpleReg(model_cfg, runtime_cfg, dataset, device=device)
-    if name == "CenterPoint":
-        from .detectors import build_detector
-
+    if name in DETECTORS:
         runtime_cfg = dict(runtime_cfg or {})
         if dataset is not None:
             runtime_cfg.setdefault("num_point_features",
                                    dataset.point_feature_encoder.num_point_features)
         return build_detector(model_cfg, runtime_cfg, device=device)
-    raise NotImplementedError(f"build_network: the detector {name!r} is not ported yet "
-                              "(ROADMAP.md, queue 1 item 4)")
+    raise unported("build_network: the detector", name)

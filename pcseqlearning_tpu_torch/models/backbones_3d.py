@@ -25,7 +25,7 @@ class _Backbone8x(nn.Module):
         self.voxel_cap = int(voxel_cap)
         self.dense_table_cap = dense_table_cap
         self.residual = residual
-        c = channels
+        self.channels = c = tuple(channels)  # stage s's output has channels[s]
         kw = dict(dense_table_cap=dense_table_cap, generator=generator)
         cap = self.voxel_cap
         self.conv_input = SubMConvBlock(input_channels, c[0], **kw)

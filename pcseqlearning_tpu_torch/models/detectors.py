@@ -1,8 +1,10 @@
 """Detector assembly (counterpart of pcseqlearning_tpu.models.detectors):
 the config-driven module stack vfe -> backbone_3d -> map_to_bev ->
-backbone_2d -> dense_head, with the modules CenterPoint runs. Every other
-module name of the JAX package raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+backbone_2d -> dense_head, then, for a two-stage model, the RoI stage.
+It builds CenterPoint, SECONDNet, SECONDNetIoU, PointPillar and VoxelRCNN
+as their configs name their modules. Every other module name of the JAX
+package raises NotImplementedError naming the ROADMAP.md item that ports
+it.
 """
 
 from __future__ import annotations
@@ -11,17 +13,35 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import boxes as box_ops
 from ..ops import sparse_conv as sc
+from . import roi_heads as rh
 from .backbones_2d import BaseBEVBackbone, HeightCompression, PointPillarScatter
 from .backbones_3d import BACKBONES_3D
-from .dense_heads import CenterHead
-from .vfe import DynamicMeanVFE
+from .dense_heads import AnchorHeadSingle, CenterHead
+from .model_nms_utils import argsort_desc, top_k
+from .vfe import DynamicMeanVFE, DynPillarVFE
 
-_LATER = "ROADMAP.md, queue 1 item 4 (the other detectors)"
+# what is left of ROADMAP.md queue 1 item 4, and the module names each part
+# brings
+_LEFT = {
+    "4.1 (PartA2)": ("PartA2Net", "UNetV2", "PartA2FCHead", "SECONDHead"),
+    "4.2 (PV-RCNN, PV-RCNN++ and its co-train)": (
+        "PVRCNN", "PVRCNNPlusPlus", "PVRCNNPlusPlusCoTrain", "VoxelSetAbstraction",
+        "PVRCNNHead", "PointSegHead", "PointHeadSimple"),
+    "4.3 (PointRCNN)": ("PointRCNN", "PointNet2MSG", "PointNet2Backbone", "PointHeadBox",
+                        "PointRCNNHead"),
+    "4.4 (SST-CenterPoint)": ("SST", "SSTBackbone"),
+    "4.5 (CaDDN)": ("CaDDN", "ImageVFE"),
+}
 
 
-def _unported(what):
-    return NotImplementedError(f"{what} is not ported yet ({_LATER})")
+def unported(what, name):
+    """The NotImplementedError for module ``name`` that the port lacks,
+    naming the ROADMAP.md item that ports it."""
+    item = next((k for k, names in _LEFT.items() if name in names), "4 (the other detectors)")
+    return NotImplementedError(f"{what} {name!r} is not ported yet (ROADMAP.md, queue 1 item "
+                               f"{item})")
 
 
 def _conv_out_depth(nz):
@@ -34,13 +54,13 @@ def _conv_out_depth(nz):
     return (d - 3) // 2 + 1
 
 
-class CenterHeadWrap(nn.Module):
-    """The detector's dense head: a ``CenterHead`` under the name ``head``,
-    as in the JAX module tree."""
+class HeadWrap(nn.Module):
+    """The detector's dense head under the name ``head``, as in the JAX
+    module tree (CenterHeadWrap, AnchorHeadWrap)."""
 
-    def __init__(self, **kw):
+    def __init__(self, head):
         super().__init__()
-        self.head = CenterHead(**kw)
+        self.head = head
 
     def forward(self, batch_dict):
         return self.head(batch_dict)
@@ -52,30 +72,47 @@ class CenterHeadWrap(nn.Module):
         return self.head.generate_predicted_boxes(batch_dict)
 
 
+def _anchor_cfgs(head_cfg):
+    return [dict(sizes=[tuple(s) for s in a["anchor_sizes"]],
+                 rotations=tuple(a["anchor_rotations"]), heights=tuple(a["anchor_bottom_heights"]),
+                 matched_threshold=float(a["matched_threshold"]),
+                 unmatched_threshold=float(a["unmatched_threshold"]))
+            for a in head_cfg.get("ANCHOR_GENERATOR_CONFIG", [])]
+
+
 class Detector3DTemplate(nn.Module):
     """Config-driven detector. In training mode the forward also puts the
-    head's losses in ``batch_dict["losses"]``."""
+    losses in ``batch_dict["losses"]``: the dense head's, and with a
+    ROI_HEAD the RoI head's and their sum ``total_loss``."""
 
     def __init__(self, model_cfg, num_classes, grid_size, point_cloud_range, voxel_size,
                  voxel_cap=16384, dense_table_cap=sc.DENSE_TABLE_CAP, generator=None,
                  num_point_features=4):
         super().__init__()
         cfg = model_cfg
-        for key in ("PFE", "ROI_HEAD", "SEG_HEAD"):
+        name = str(cfg.get("NAME", ""))
+        if "CoTrain" in name:
+            raise unported("the detector", name)
+        for key in ("PFE", "SEG_HEAD"):
             if key in cfg:
-                raise _unported(f"{key} {cfg[key].get('NAME')!r}")
-        if "CoTrain" in str(cfg.get("NAME", "")):
-            raise _unported(f"the detector {cfg['NAME']!r}")
-        vfe_name = cfg.get("VFE", {}).get("NAME")
-        if vfe_name not in ("DynamicMeanVFE", "MeanVFE"):
-            raise _unported(f"the VFE {vfe_name!r}")
-        self.vfe = DynamicMeanVFE(voxel_size, point_cloud_range, voxel_cap)
-        self.backbone_3d = None
+                raise unported(key, cfg[key].get("NAME"))
+        vfe_cfg = cfg.get("VFE", {})
+        vfe_name = vfe_cfg.get("NAME")
         bev_channels = num_point_features  # the VFE's width, for a pillar scatter
+        if vfe_name in ("DynamicMeanVFE", "MeanVFE"):
+            self.vfe = DynamicMeanVFE(voxel_size, point_cloud_range, voxel_cap)
+        elif vfe_name in ("DynPillarVFE", "DynamicPillarVFE"):
+            self.vfe = DynPillarVFE(voxel_size, point_cloud_range, voxel_cap,
+                                    num_filters=tuple(vfe_cfg.get("NUM_FILTERS", [64])),
+                                    num_point_features=num_point_features, generator=generator)
+            bev_channels = self.vfe.out_channels
+        else:
+            raise unported("the VFE", vfe_name)
+        self.backbone_3d = None
         if "BACKBONE_3D" in cfg:
             b3d = cfg["BACKBONE_3D"].get("NAME")
             if b3d not in BACKBONES_3D:
-                raise _unported(f"the 3D backbone {b3d!r}")
+                raise unported("the 3D backbone", b3d)
             self.backbone_3d = BACKBONES_3D[b3d](
                 num_point_features, grid_size, voxel_cap,
                 dense_table_cap=dense_table_cap, generator=generator)
@@ -87,7 +124,7 @@ class Detector3DTemplate(nn.Module):
         elif m2b == "PointPillarScatter":
             self.map_to_bev = PointPillarScatter(grid_size)
         else:
-            raise _unported(f"MAP_TO_BEV {m2b!r}")
+            raise unported("MAP_TO_BEV", m2b)
         b2d = cfg.get("BACKBONE_2D", {"NAME": "BaseBEVBackbone"})
         self.backbone_2d = BaseBEVBackbone(
             bev_channels,
@@ -97,37 +134,126 @@ class Detector3DTemplate(nn.Module):
             upsample_strides=b2d.get("UPSAMPLE_STRIDES", [1, 2]),
             num_upsample_filters=b2d.get("NUM_UPSAMPLE_FILTERS", [256, 256]),
             generator=generator)
+        self.roi_head = None
+        if "ROI_HEAD" in cfg:
+            rcfg = cfg["ROI_HEAD"]
+            if rcfg["NAME"] not in rh.ROI_HEADS:
+                raise unported("the RoI head", rcfg["NAME"])
+            # it pools x_conv3 and x_conv4, the 3D backbone's last two stages
+            self.roi_head = rh.ROI_HEADS[rcfg["NAME"]](
+                voxel_size, point_cloud_range, source_channels=self.backbone_3d.channels[3:5],
+                grid_size=int(rcfg.get("GRID_SIZE", 6)), generator=generator)
+            self.num_rois = int(rcfg.get("NMS_POST_MAXSIZE", 128))
         head = cfg["DENSE_HEAD"]
-        if head["NAME"] != "CenterHead":
-            raise _unported(f"the dense head {head['NAME']!r}")
-        self.dense_head = CenterHeadWrap(
-            input_channels=self.backbone_2d.num_bev_features, num_classes=num_classes,
-            grid_size_xy=(grid_size[0], grid_size[1]), point_cloud_range=point_cloud_range,
-            feature_stride=int(head.get("FEATURE_MAP_STRIDE",
-                                        1 if self.backbone_3d is None else 8)),
-            generator=generator)
+        stride = int(head.get("FEATURE_MAP_STRIDE", 1 if self.backbone_3d is None else 8))
+        c2d = self.backbone_2d.num_bev_features
+        if head["NAME"] == "CenterHead":
+            self.dense_head = HeadWrap(CenterHead(
+                input_channels=c2d, num_classes=num_classes,
+                grid_size_xy=(grid_size[0], grid_size[1]), point_cloud_range=point_cloud_range,
+                feature_stride=stride, generator=generator))
+        elif head["NAME"] == "AnchorHeadSingle":
+            self.dense_head = HeadWrap(AnchorHeadSingle(
+                c2d, num_classes, (-(-grid_size[0] // stride), -(-grid_size[1] // stride)),
+                point_cloud_range, _anchor_cfgs(head), predict_iou=name == "SECONDNetIoU",
+                generator=generator))
+        else:
+            raise unported("the dense head", head["NAME"])
 
     def forward(self, batch_dict):
-        for module in (self.vfe, self.backbone_3d, self.map_to_bev, self.backbone_2d,
-                       self.dense_head):
+        """The VFE computes its cells in the points' dtype; what it returns
+        goes on in the network's (the dense head's parameters')."""
+        dtype = next(self.dense_head.parameters()).dtype
+        batch_dict = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+                      for k, v in self.vfe(batch_dict).items()}
+        for module in (self.backbone_3d, self.map_to_bev, self.backbone_2d, self.dense_head):
             if module is not None:
                 batch_dict = module(batch_dict)
         if self.training:
             batch_dict["losses"] = self.dense_head.loss(batch_dict)
+        if self.roi_head is not None:
+            batch_dict = self._run_roi_stage(batch_dict)
+        return batch_dict
+
+    def _run_roi_stage(self, batch_dict):
+        """Per sample, the dense head's boxes through ``proposal_layer``;
+        the RoI head over the flattened RoI table; in training, the RoI
+        targets and losses (``total_loss`` = the dense head's loss + both
+        RoI losses), else the refined boxes and their scores."""
+        if "center_preds" in batch_dict:
+            boxes, scores, _, _ = self.dense_head.generate_predicted_boxes(batch_dict)
+        else:
+            boxes, cls_scores = self.dense_head.generate_predicted_boxes(batch_dict)
+            scores = cls_scores.amax(dim=-1)
+        per_sample = [rh.proposal_layer(boxes[b], scores[b], num_rois=self.num_rois)
+                      for b in range(boxes.shape[0])]
+        rois, roi_scores, roi_valid = (torch.stack(t) for t in zip(*per_sample))
+        B, R = rois.shape[0], rois.shape[1]
+        valid_flat = roi_valid.reshape(B * R)
+        batch_dict["roi_batch"] = torch.arange(B, device=rois.device).repeat_interleave(R)
+        cls_p, reg_p = self.roi_head(batch_dict, rois.reshape(B * R, 7), valid_flat)
+        batch_dict.update(rois=rois, roi_scores=roi_scores, roi_valid=roi_valid,
+                          rcnn_cls=cls_p.reshape(B, R), rcnn_reg=reg_p.reshape(B, R, -1))
+        if self.training:
+            gt = batch_dict["gt_boxes"]
+            targets = [rh.assign_roi_targets(rois[b], roi_valid[b], gt[b, :, :7],
+                                             gt[b, :, 7].to(torch.int64), gt[b, :, 7] > 0)
+                       for b in range(B)]
+            cls_t, reg_t, fg = (torch.stack([t[i] for t in targets]) for i in range(3))
+            cls_l, reg_l = rh.roi_head_loss(cls_p, reg_p, cls_t.reshape(-1),
+                                            reg_t.reshape(B * R, -1), fg.reshape(-1), valid_flat)
+            losses = dict(batch_dict.get("losses", {}))
+            base = "center_loss" if "center_preds" in batch_dict else "rpn_loss"
+            losses.update(rcnn_loss_cls=cls_l, rcnn_loss_reg=reg_l,
+                          total_loss=losses[base] + cls_l + reg_l)
+            batch_dict["losses"] = losses
+        else:
+            batch_dict["refined_boxes"] = torch.stack([
+                rh.decode_roi_boxes(rois[b], batch_dict["rcnn_reg"][b]) for b in range(B)])
+            batch_dict["refined_scores"] = torch.sigmoid(batch_dict["rcnn_cls"])
         return batch_dict
 
     @torch.no_grad()
     def predict(self, batch_dict):
         """The eval-mode forward and its decoded predictions: (batch_dict,
-        boxes [B, K, 7], scores [B, K], labels [B, K], valid [B, K]). The
-        module's mode is restored afterwards."""
+        boxes [B, K, 7], scores [B, K], labels [B, K], valid [B, K]): the
+        refined RoIs (label 1) for a two-stage model, the CenterHead's top-K
+        decode, or the anchor head's boxes through ``post_process_anchor``.
+        The module's mode is restored afterwards."""
         was_training = self.training
         self.eval()
         try:
             out = self(batch_dict)
         finally:
             self.train(was_training)
-        return (out,) + tuple(self.dense_head.generate_predicted_boxes(out))
+        if self.roi_head is not None:
+            scores = out["refined_scores"]
+            return (out, out["refined_boxes"], scores, torch.ones_like(scores, dtype=torch.int64),
+                    out["roi_valid"])
+        if "center_preds" in out:
+            return (out,) + tuple(self.dense_head.generate_predicted_boxes(out))
+        raw_boxes, raw_scores = self.dense_head.generate_predicted_boxes(out)
+        per_sample = [post_process_anchor(raw_boxes[b], raw_scores[b])
+                      for b in range(raw_boxes.shape[0])]
+        return (out,) + tuple(torch.stack(t) for t in zip(*per_sample))
+
+
+def post_process_anchor(boxes, scores, nms_thresh=0.7, score_thresh=0.1, pre_max=4096,
+                        post_max=500):
+    """One sample's class-agnostic NMS over the anchor head's decoded boxes
+    [A, 7] and class scores [A, C], with these defaults (as the JAX package
+    runs it, not POST_PROCESSING): the top ``pre_max`` by their best class,
+    NMS among those above ``score_thresh``, the kept first. Returns (boxes
+    [P, 7], scores [P], labels [P] from 1, valid [P]), P = min(post_max,
+    pre_max, A)."""
+    cls_score = scores.amax(dim=-1)
+    labels = torch.argmax(scores, dim=-1) + 1
+    topv, topi = top_k(cls_score, min(pre_max, cls_score.shape[0]))
+    cand = boxes[topi]
+    keep = box_ops.nms_bev(cand, topv, nms_thresh, valid=topv > score_thresh)
+    order = argsort_desc(torch.where(keep, topv, torch.full_like(topv, float("-inf"))))
+    order = order[:post_max]
+    return cand[order], topv[order], labels[topi][order], keep[order] & (topv[order] > score_thresh)
 
 
 def build_detector(model_cfg, runtime_cfg=None, device="cuda", seed=0):

@@ -1,0 +1,181 @@
+"""RoI heads (counterpart of pcseqlearning_tpu.models.roi_heads): the
+proposal layer, RoI target assignment, the refinement decode and losses
+that every two-stage model shares, and ``VoxelRCNNHead``. The JAX
+package's other RoI heads raise NotImplementedError in the detector's
+setup, naming the ROADMAP.md item that ports them.
+
+No gradient is stopped: as in JAX, the RoI head's losses reach the dense
+head through the RoIs (the grid points, the canonical-frame targets and
+the 3D IoU in the targets). Gathers that carry a gradient go through
+``segment_ops.take_rows``, whose backward is reproducible on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops import boxes as box_ops
+from ..ops import hash_graph, roi_pool, segment_ops
+from ..utils import loss_utils
+from ..utils.box_coder_utils import ResidualCoder
+from .layers import MaskedBatchNorm
+from .model_nms_utils import argsort_desc, top_k
+from .pfe import voxel_centers
+from .vfe import linear
+
+
+def proposal_layer(pred_boxes, pred_scores, num_rois=128, nms_thresh=0.7, pre_max=1024):
+    """One sample's RoIs: the top ``pre_max`` scores, rotated NMS, then the
+    kept boxes by descending score, the rest after them in score order, cut
+    to ``num_rois``. pred_boxes [A, 7], pred_scores [A] -> (rois [R, 7],
+    roi_scores [R], roi_valid [R]), R = min(num_rois, pre_max, A)."""
+    top_s, top_i = top_k(pred_scores, min(pre_max, pred_scores.shape[0]))
+    cand = segment_ops.take_rows(pred_boxes, top_i)
+    keep = box_ops.nms_bev(cand, top_s, nms_thresh)
+    order = argsort_desc(torch.where(keep, top_s, torch.full_like(top_s, float("-inf"))))
+    order = order[:num_rois]
+    return segment_ops.take_rows(cand, order), top_s[order], keep[order]
+
+
+def _canonical(rois):
+    """The RoIs moved to the origin with no heading (their sizes kept)."""
+    zeros = rois.new_zeros(rois.shape[0], 3)
+    return torch.cat([zeros, rois[:, 3:6], zeros[:, :1]], dim=1)
+
+
+def assign_roi_targets(rois, roi_valid, gt_boxes, gt_classes, gt_valid, fg_thresh=0.55,
+                       bg_thresh=0.1, coder=None):
+    """Each RoI's best GT by 3D IoU: (cls targets [R], the IoU scaled
+    between bg_thresh and fg_thresh and clipped to [0, 1]; regression
+    targets [R, 7] in the RoI's canonical frame, the heading residual
+    wrapped, flipped by pi when opposite and clipped to +-pi/2; fg [R];
+    best IoU [R]; best GT [R])."""
+    coder = coder or ResidualCoder()
+    iou = box_ops.boxes_iou3d(rois, gt_boxes)
+    iou = torch.where(gt_valid[None, :] & roi_valid[:, None], iou, iou.new_tensor(-1.0))
+    best = iou.amax(dim=1)
+    arg = torch.argmax(iou, dim=1)
+    tgt = gt_boxes[arg]
+    cls_t = loss_utils.clip_split((best - bg_thresh) / (fg_thresh - bg_thresh), 0.0, 1.0)
+    fg = best >= fg_thresh
+    dxy = tgt[:, 0:2] - rois[:, 0:2]
+    c, s = torch.cos(-rois[:, 6]), torch.sin(-rois[:, 6])
+    lx = dxy[:, 0] * c - dxy[:, 1] * s
+    ly = dxy[:, 0] * s + dxy[:, 1] * c
+    two_pi = 2 * torch.pi
+    dh = torch.remainder(tgt[:, 6] - rois[:, 6], two_pi)
+    opposite = (dh > torch.pi * 0.5) & (dh < torch.pi * 1.5)
+    dh = torch.where(opposite, torch.remainder(dh + torch.pi, two_pi), dh)
+    dh = torch.where(dh > torch.pi, dh - two_pi, dh)
+    dh = loss_utils.clip_split(dh, -torch.pi / 2, torch.pi / 2)
+    local_tgt = torch.cat([torch.stack([lx, ly, tgt[:, 2] - rois[:, 2]], dim=-1), tgt[:, 3:6],
+                           dh[:, None]], dim=-1)
+    return cls_t, coder.encode(local_tgt, _canonical(rois)), fg, best, arg
+
+
+def decode_roi_boxes(rois, reg_preds, coder=None):
+    """Refined boxes [R, 7] from the canonical-frame residuals."""
+    coder = coder or ResidualCoder()
+    local = coder.decode(reg_preds, _canonical(rois))
+    c, s = torch.cos(rois[:, 6]), torch.sin(rois[:, 6])
+    gx = local[:, 0] * c - local[:, 1] * s + rois[:, 0]
+    gy = local[:, 0] * s + local[:, 1] * c + rois[:, 1]
+    return torch.cat([torch.stack([gx, gy, local[:, 2] + rois[:, 2]], dim=-1), local[:, 3:6],
+                      (local[:, 6] + rois[:, 6])[:, None]], dim=-1)
+
+
+def roi_head_loss(cls_preds, reg_preds, cls_t, reg_t, fg, roi_valid, code_weights=None):
+    """(cls loss: BCE of the logits against the IoU-guided targets over the
+    valid RoIs; reg loss: smooth-L1 over the valid foreground RoIs)."""
+    v = roi_valid.to(cls_preds.dtype)
+    nv = torch.clamp(v.sum(), min=1.0)
+    bce = (loss_utils.relu_split(cls_preds) - cls_preds * cls_t
+           + torch.log1p(torch.exp(-loss_utils.abs_(cls_preds))))
+    fgw = (fg & roi_valid).to(cls_preds.dtype)
+    nfg = torch.clamp(fgw.sum(), min=1.0)
+    reg = loss_utils.weighted_smooth_l1_loss(reg_preds, reg_t, fgw / nfg, code_weights=code_weights)
+    return (bce * v).sum() / nv, reg.sum()
+
+
+class _FCHead(nn.Module):
+    """The shared FC trunk (linear without bias, ``MaskedBatchNorm`` over the
+    valid RoIs, ReLU per layer), then the cls (1) and reg (code_size)
+    linears: flax's Dense_0 .. Dense_{n+1} as linear0 .. linear{n+1}."""
+
+    def __init__(self, cin, shared=(256, 256), code_size=7, generator=None):
+        super().__init__()
+        self.num_shared = len(shared)
+        for i, c in enumerate(shared):
+            setattr(self, f"linear{i}", linear(cin, c, generator=generator))
+            setattr(self, f"norm{i}", MaskedBatchNorm(c))
+            cin = c
+        n = self.num_shared
+        setattr(self, f"linear{n}", linear(cin, 1, bias=True, generator=generator))
+        setattr(self, f"linear{n + 1}", linear(cin, code_size, bias=True, generator=generator))
+
+    def forward(self, x, valid):
+        for i in range(self.num_shared):
+            x = torch.relu(getattr(self, f"norm{i}")(getattr(self, f"linear{i}")(x), valid))
+        n = self.num_shared
+        return getattr(self, f"linear{n}")(x)[:, 0], getattr(self, f"linear{n + 1}")(x)
+
+
+class VoxelRCNNHead(nn.Module):
+    """Voxel-query grid pooling: each RoI's G^3 grid points query the
+    voxels of each source stage within its radius (the hash-grid search,
+    ``nsample`` nearest, a scan cap of nsample + 16 a probe); each sample's
+    offset and features go through a linear, ``MaskedBatchNorm`` and ReLU,
+    then a max over the samples (a tie's gradient split evenly, as
+    ``jnp.max``); the concatenated grid features feed ``_FCHead``."""
+
+    STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
+    # the JAX module's defaults, which no config changes
+    FEATURES_SOURCE, POOL_RADIUS, NSAMPLE = ("x_conv3", "x_conv4"), (0.8, 1.6), 16
+
+    def __init__(self, voxel_size, point_cloud_range, source_channels=(64, 64), grid_size=6,
+                 generator=None):
+        super().__init__()
+        self.voxel_size, self.point_cloud_range = tuple(voxel_size), tuple(point_cloud_range)
+        self.grid_size = grid_size
+        for src, c in zip(self.FEATURES_SOURCE, source_channels):
+            setattr(self, f"pool_{src}_fc", linear(3 + c, 32, generator=generator))
+            setattr(self, f"pool_{src}_bn", MaskedBatchNorm(32))
+        self.head = _FCHead(len(self.FEATURES_SOURCE) * 32 * grid_size ** 3, generator=generator)
+
+    def forward(self, batch_dict, rois, roi_valid):
+        r, g, k = rois.shape[0], self.grid_size, self.NSAMPLE
+        grid_pts = roi_pool.roi_grid_points(rois, g).reshape(r * g ** 3, 3)
+        roi_batch = batch_dict.get("roi_batch")
+        if roi_batch is None:
+            roi_batch = torch.zeros(r, dtype=torch.int64, device=rois.device)
+        grid_b = torch.repeat_interleave(roi_batch, g ** 3)
+        q_f = torch.cat([grid_b[:, None].to(torch.float32), grid_pts.detach().to(torch.float32)],
+                        dim=1)
+        pooled = []
+        for src, radius in zip(self.FEATURES_SOURCE, self.POOL_RADIUS):
+            st = batch_dict["multi_scale_3d_features"][src]
+            centers = voxel_centers(st.coords, st.valid, self.voxel_size,
+                                    self.point_cloud_range[:3], self.STRIDES[src])
+            src_f = torch.cat([st.coords[:, 0:1].to(torch.float32), centers], dim=1)
+            grid = hash_graph.build_hash_grid(src_f, radius, st.valid)
+            idx, _, mask = hash_graph.radius_neighbors(grid, q_f, radius, k, cell_cap=k + 16)
+            idx = torch.clamp(idx, 0, centers.shape[0] - 1).reshape(-1)
+            m = mask.reshape(-1)
+            rel = centers[idx].reshape(-1, k, 3).to(grid_pts.dtype) - grid_pts[:, None, :]
+            gf = segment_ops.take_rows(st.features, idx)
+            x = torch.cat([rel.reshape(-1, 3), gf], dim=-1)
+            x = torch.where(m[:, None], x, x.new_zeros(()))
+            h = getattr(self, f"pool_{src}_fc")(x)
+            h = torch.relu(getattr(self, f"pool_{src}_bn")(h, m)).reshape(r * g ** 3, k, -1)
+            h = torch.where(mask[..., None], h, torch.full_like(h, float("-inf")))
+            hmax = h.amax(dim=1)
+            pooled.append(torch.where(mask.any(1)[:, None], hmax, hmax.new_zeros(())))
+        feat = torch.cat(pooled, dim=-1).reshape(r, -1)
+        return self.head(feat, roi_valid)
+
+
+# the RoI heads the port has; the JAX package's others (PVRCNNHead,
+# PartA2FCHead, SECONDHead, PointRCNNHead) raise in the detector's setup,
+# naming the ROADMAP.md item that ports them
+ROI_HEADS = {"VoxelRCNNHead": VoxelRCNNHead}

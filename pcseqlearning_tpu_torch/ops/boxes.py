@@ -10,11 +10,23 @@ device: each pair's BEV rectangles are clipped one against the other
 of the emitted vertices' positions), the intersection's area is the
 shoelace sum, and the 3D overlap multiplies it by the z-extents' overlap.
 The JAX package computes them in XLA, with no Pallas kernel; so does this
-module. NMS (``nms_bev``, ``nms_normal_bev``) is not ported: CenterPoint's
-decode is a top-k (ROADMAP.md, queue 1 item 4)."""
+module.
+
+NMS (``nms_bev``, ``nms_normal_bev``) keeps JAX's greedy rule exactly: the
+boxes sorted by score (stably, padded rows last), row i, if still kept,
+suppresses every row j != i with iou[i, j] > threshold, earlier rows
+included (the IoU is not exactly symmetric). JAX runs that as a loop over
+all rows on the device; here the [K, K] mask ``iou > threshold`` is formed
+on the tensors' device (``iou_bev_above``: the rotated IoU only for the
+pairs whose circumscribed circles meet, the others' IoU being 0, in chunks
+of at most ``NMS_PAIRS_PER_CHUNK`` pairs, so that the clipping's
+temporaries stay small; each pair is computed alone, so neither changes a
+value), is copied to the host once, and one pass over it visits only the
+kept rows: no device operation per row."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # corner signs (x, y, z) of the reference template, halved below
@@ -109,18 +121,24 @@ def _polygon_area(poly, n_valid):
     return torch.where(valid, cross, torch.zeros_like(cross)).sum(-1).abs() / 2.0
 
 
+def _pair_overlap(ca, cb):
+    """Intersection areas [M] of the rectangle pairs with corners ca, cb
+    [M, 4, 2]."""
+    m = ca.shape[0]
+    # a 4-gon clipped by four half-planes has at most 8 vertices; 16 slots
+    poly = torch.cat([ca, ca.new_zeros(m, 12, 2)], dim=1)
+    n = torch.full((m,), 4, dtype=torch.int64, device=ca.device)
+    for e in range(4):
+        poly, n = _clip_polygon(poly, n, cb[:, e], cb[:, (e + 1) % 4])
+    return _polygon_area(poly, n)
+
+
 def boxes_overlap_bev(boxes_a, boxes_b):
     """[A, B] BEV intersection areas of rotated boxes [A, 7] and [B, 7]."""
     ca, cb = _bev_corners(boxes_a), _bev_corners(boxes_b)
     A, B = boxes_a.shape[0], boxes_b.shape[0]
-    ca = ca[:, None].expand(A, B, 4, 2).reshape(A * B, 4, 2)
-    cb = cb[None].expand(A, B, 4, 2).reshape(A * B, 4, 2)
-    # a 4-gon clipped by four half-planes has at most 8 vertices; 16 slots
-    poly = torch.cat([ca, ca.new_zeros(A * B, 12, 2)], dim=1)
-    n = torch.full((A * B,), 4, dtype=torch.int64, device=ca.device)
-    for e in range(4):
-        poly, n = _clip_polygon(poly, n, cb[:, e], cb[:, (e + 1) % 4])
-    return _polygon_area(poly, n).reshape(A, B)
+    return _pair_overlap(ca[:, None].expand(A, B, 4, 2).reshape(A * B, 4, 2),
+                         cb[None].expand(A, B, 4, 2).reshape(A * B, 4, 2)).reshape(A, B)
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
@@ -142,3 +160,83 @@ def boxes_iou3d(boxes_a, boxes_b):
     vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
     vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
     return inter / torch.clamp(vol_a + vol_b - inter, min=1e-7)
+
+
+# at most this many box pairs per chunk of the rotated IoU in NMS (each pair
+# takes a few kB of temporaries in the polygon clipping)
+NMS_PAIRS_PER_CHUNK = 1 << 20
+
+
+def _greedy_keep(over, svalid):
+    """JAX's suppression loop over the score-sorted rows, on the host:
+    ``over`` [K, K] bool (iou > threshold), ``svalid`` [K]. Returns the
+    sorted rows' keep mask (NumPy)."""
+    over = over.cpu().numpy()
+    np.fill_diagonal(over, False)
+    keep = svalid.cpu().numpy().copy()
+    for i in range(keep.shape[0]):
+        if keep[i]:  # keep starts as svalid, so a kept row is valid
+            keep &= ~over[i]
+    return keep
+
+
+def _nms(boxes, scores, valid, over_fn):
+    b = boxes.shape[0]
+    if valid is None:
+        valid = torch.ones(b, dtype=torch.bool, device=boxes.device)
+    neg_inf = torch.full_like(scores, float("-inf"))
+    order = torch.sort(-torch.where(valid, scores, neg_inf), stable=True).indices
+    with torch.no_grad():
+        keep_sorted = _greedy_keep(over_fn(boxes[order]), valid[order])
+    keep = torch.zeros(b, dtype=torch.bool, device=boxes.device)
+    keep[order] = torch.from_numpy(keep_sorted).to(boxes.device)
+    return keep
+
+
+def iou_bev_above(boxes, iou_threshold):
+    """[K, K] bool: ``boxes_iou_bev(boxes, boxes) > iou_threshold``, with
+    the rotated IoU computed only for the pairs whose BEV circumscribed
+    circles meet (a pair whose circles are apart has no overlap and an IoU
+    of 0, the value it gets here), in chunks of at most
+    ``NMS_PAIRS_PER_CHUNK`` pairs; each pair's arithmetic is
+    ``boxes_iou_bev``'s."""
+    per_chunk = NMS_PAIRS_PER_CHUNK
+    k = boxes.shape[0]
+    over = torch.full((k, k), 0.0 > iou_threshold, dtype=torch.bool, device=boxes.device)
+    corners = _bev_corners(boxes)
+    area = boxes[:, 3] * boxes[:, 4]
+    ctr = boxes[:, 0:2]
+    reach = 0.5 * torch.sqrt(boxes[:, 3] ** 2 + boxes[:, 4] ** 2)
+    rows = max(1, per_chunk // max(k, 1))
+    for r0 in range(0, k, rows):
+        d2 = ((ctr[r0:r0 + rows, None] - ctr[None]) ** 2).sum(-1)
+        r2 = (reach[r0:r0 + rows, None] + reach[None]) ** 2
+        i, j = torch.nonzero(d2 <= r2 * 1.001 + 1e-4, as_tuple=True)  # a margin for rounding
+        i = i + r0
+        inter = _pair_overlap(corners[i], corners[j])
+        over[i, j] = inter / torch.clamp(area[i] + area[j] - inter, min=1e-7) > iou_threshold
+    return over
+
+
+def nms_bev(boxes, scores, iou_threshold, valid=None):
+    """Oriented BEV NMS: boxes [K, 7], scores [K], valid [K] (padded rows
+    False). Returns keep [K] bool in the input order."""
+    return _nms(boxes, scores, valid, lambda sboxes: iou_bev_above(sboxes, iou_threshold))
+
+
+def nms_normal_bev(boxes, scores, iou_threshold, valid=None):
+    """Axis-aligned NMS: the IoU of the boxes' BEV extents, heading
+    ignored. Same contract as ``nms_bev``."""
+
+    def over(sboxes):
+        x1, x2 = sboxes[:, 0] - sboxes[:, 3] / 2.0, sboxes[:, 0] + sboxes[:, 3] / 2.0
+        y1, y2 = sboxes[:, 1] - sboxes[:, 4] / 2.0, sboxes[:, 1] + sboxes[:, 4] / 2.0
+        iw = torch.clamp(torch.minimum(x2[:, None], x2[None, :])
+                         - torch.maximum(x1[:, None], x1[None, :]), min=0.0)
+        ih = torch.clamp(torch.minimum(y2[:, None], y2[None, :])
+                         - torch.maximum(y1[:, None], y1[None, :]), min=0.0)
+        inter = iw * ih
+        area = (x2 - x1) * (y2 - y1)
+        return inter / torch.clamp(area[:, None] + area[None, :] - inter, min=1e-7) > iou_threshold
+
+    return _nms(boxes, scores, valid, over)

@@ -50,6 +50,29 @@ def index_add(base, index, data):
     return base.index_add(0, index, data)
 
 
+class _TakeRows(torch.autograd.Function):
+    """x[idx] for x [N, ...] and idx [M] (every index in range); the backward
+    sums dY into the rows by ``segment_sum``, so a repeated index adds in a
+    reproducible order on the card (autograd's own index backward adds with
+    atomics there)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, dy):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(dy, idx, ctx.n), None
+
+
+def take_rows(x, idx):
+    """``x[idx]`` with a backward that is reproducible on the card."""
+    return _TakeRows.apply(x, idx)
+
+
 def segment_count(segment_ids, num_segments, weights=None, dtype=torch.float32):
     w = (torch.ones(segment_ids.shape[0], dtype=dtype, device=segment_ids.device)
          if weights is None else weights)

@@ -221,11 +221,11 @@ def write_detector_sequences(root, frames, points, val_frames=0, **scene_kw):
     return str(root / "train"), str(root / "val")
 
 
-def detector_argv(repo, data_path, root, device, *args, overrides=()):
-    """The detector CLIs' argv: ``DETECTOR_CFGS`` under ``repo``, then
-    ``args``, then ``--set`` with the data path, the output root and
-    ``overrides``."""
-    return ([str(Path(repo) / c) for c in DETECTOR_CFGS]
+def detector_argv(repo, data_path, root, device, *args, overrides=(), cfgs=DETECTOR_CFGS):
+    """The detector CLIs' argv: ``cfgs`` (model, data, optimizer; default
+    ``DETECTOR_CFGS``) under ``repo``, then ``args``, then ``--set`` with the
+    data path, the output root and ``overrides``."""
+    return ([str(Path(repo) / c) for c in cfgs]
             + ["--device", device, *args, "--set", "DATA_CONFIG.DATA_PATH", data_path,
                "ROOT_DIR", str(root), *overrides])
 

@@ -7,7 +7,9 @@
 The configs compose as for training (no visualizer); the test loader runs
 the dataset with ``training=False`` (no augmentation, no shuffles). For a
 checkpoint, ``eval_ckpt`` runs the detector's ``predict`` on every batch in
-the dense layout, keeps each sample's valid rows, formats them with the
+the dense layout (CenterPoint's top-K decode, the anchor detectors' NMS,
+Voxel R-CNN's refined RoIs, labelled 1 as in JAX), keeps each sample's
+valid rows, formats them with the
 dataset's ``generate_prediction_dicts`` and scores them with its
 ``evaluation`` (the Waymo-style AP/APH), logged under
 ``<ROOT_DIR>/output/<TAG>/<extra_tag>/eval/``. ``--ckpt`` evaluates one

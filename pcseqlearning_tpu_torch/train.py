@@ -19,8 +19,9 @@ them, for example ``--set MODEL.PREPROCESSORS.1.CC_GRAPH knn``. The stages'
 DIR, LOG_DIR and SAVE_DIR paths are relative to the working directory, as
 in the JAX CLI.
 
-A detector config trains: ``build_network`` (CenterPoint; other detectors
-raise), the optimizer and schedule of ``build_optimizer(OPTIMIZATION,
+A detector config trains: ``build_network`` (CenterPoint, SECONDNet,
+SECONDNetIoU, PointPillar and VoxelRCNN; the other detectors raise, naming
+their ROADMAP.md item), the optimizer and schedule of ``build_optimizer(OPTIMIZATION,
 len(loader), epochs)``, batches in the dense layout of
 ``dense_batch_from_collated(batch, MODEL.POINT_CAP)``, and
 ``runtime.train_utils.train_model`` over the epochs, with checkpoints in

@@ -19,8 +19,9 @@ The sparse convs and the toy CenterPoint on the card equal the port on the
 CPU with TF32 off: features and losses to 1e-5 relative, gradients to 1e-4
 of each tensor's max |g| (float32 GEMMs blocked differently). With cuDNN
 restricted to its deterministic algorithms, two train steps of the
-full-width CenterPoint repeat bit for bit, and so do two runs of the
-detector-training CLI's loop (their checkpoints).
+full-width CenterPoint, SECOND and Voxel R-CNN repeat bit for bit, and so
+do two runs of the detector-training CLI's loop (their checkpoints). NMS
+on the card keeps exactly what it keeps on the CPU.
 """
 
 import numpy as np
@@ -462,24 +463,32 @@ def test_cuda_centerpoint_train_steps_repeat(cuda_device, no_tf32, deterministic
     backward algorithms add in an order that changes from run to run):
     each step's losses and gradient norm, the gradients and the parameters
     are the same bits."""
+    from pcseqlearning_tpu_torch.scene import DETECTOR_CFG
+
+    _train_steps_repeat(cuda_device, DETECTOR_CFG, "center_loss")
+
+
+def _train_steps_repeat(device, model_yaml, loss_key):
+    """Two train steps of ``model_yaml``'s MODEL at full widths on chip_smoke.py
+    phase 7(a)'s cell, twice from the same seed: each step's losses and
+    gradient norm, the gradients and the parameters must be the same bits."""
     from pathlib import Path
 
     from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
     from pcseqlearning_tpu_torch.models import build_network
     from pcseqlearning_tpu_torch.parallel.train_step import init_train_state, make_train_step
-    from pcseqlearning_tpu_torch.scene import DETECTOR_CFG, bench_detector_batch
+    from pcseqlearning_tpu_torch.scene import bench_detector_batch
     from pcseqlearning_tpu_torch.utils.edict import EDict
 
-    cfg = cfg_from_yaml_file(str(Path(__file__).resolve().parents[1] / DETECTOR_CFG), EDict())
+    cfg = cfg_from_yaml_file(str(Path(__file__).resolve().parents[1] / model_yaml), EDict())
     runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-19.2, -19.2, -2.0, 19.2, 19.2, 4.0],
                              "VOXEL_SIZE": [0.1, 0.1, 0.15]},
                    class_names=list(cfg.CLASS_NAMES), voxel_cap=30_000)
     batch = bench_detector_batch(2, 20_000, 18.7, seed=1)
-    step = make_train_step(loss_key="center_loss", device=cuda_device)
+    step = make_train_step(loss_key=loss_key, device=device)
 
     def run():
-        state = init_train_state(build_network(cfg.MODEL, runtime, device=cuda_device),
-                                 device=cuda_device)
+        state = init_train_state(build_network(cfg.MODEL, runtime, device=device), device=device)
         steps = []
         for _ in range(2):
             state, losses = step(state, batch)
@@ -495,6 +504,56 @@ def test_cuda_centerpoint_train_steps_repeat(cuda_device, no_tf32, deterministic
         for n in ga:
             assert torch.equal(ga[n], gb[n]), n
             assert torch.equal(pa[n], pb[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,loss_key", [("second", "rpn_loss"),
+                                            ("voxel_rcnn", "total_loss")])
+def test_cuda_anchor_and_two_stage_train_steps_repeat(cuda_device, no_tf32, deterministic_cudnn,
+                                                      model, loss_key):
+    """SECOND's and Voxel R-CNN's steps repeat bit for bit as CenterPoint's
+    do: the anchor assignment's force-match, the NMS and the RoI stage's
+    gathers add nothing in a run-to-run order."""
+    _train_steps_repeat(cuda_device, f"tools/cfgs/waymo_models/{model}.yaml", loss_key)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_bev_matches_cpu(cuda_device):
+    """nms_bev and nms_normal_bev on the card keep what they keep on the
+    CPU (1,024 clustered rotated boxes, tied scores, padded rows), and
+    post_process_anchor returns the same rows over 5,120 copies of them.
+    The threshold sits in the widest gap between the pairs' IoUs (the CPU's)
+    in (0.4, 0.6), so that no rounding of the card's sines can flip a
+    decision."""
+    from pcseqlearning_tpu_torch.models.detectors import post_process_anchor
+    from pcseqlearning_tpu_torch.ops import boxes as tbx
+
+    rng = np.random.RandomState(0)
+    n = 1024
+    centres = rng.rand(300, 2) * 140 - 70
+    b = np.zeros((n, 7), np.float32)
+    b[:, :2] = centres[rng.randint(0, 300, n)] + rng.randn(n, 2) * 0.8
+    b[:, 3:6] = rng.rand(n, 3) * 3 + 1.0
+    b[:, 6] = rng.rand(n) * 2 * np.pi - np.pi
+    s = np.round(rng.rand(n), 2).astype(np.float32)
+    v = rng.rand(n) > 0.1
+    iou = tbx.boxes_iou_bev(T(b), T(b)).numpy()
+    vals = np.unique(iou[(iou > 0.4) & (iou < 0.6)])
+    gap = int(np.argmax(np.diff(vals)))
+    thr = float(vals[gap] + vals[gap + 1]) / 2
+    assert vals[gap + 1] - vals[gap] > 1e-5
+    for fn in (tbx.nms_bev, tbx.nms_normal_bev):
+        cpu = fn(T(b), T(s), thr, valid=T(v))
+        card = fn(T(b).to(cuda_device), T(s).to(cuda_device), thr, valid=T(v).to(cuda_device))
+        assert card.is_cuda and torch.equal(card.cpu(), cpu), fn.__name__
+        assert 0 < int(cpu.sum()) < int(v.sum())
+    cls = rng.rand(5 * n, 3).astype(np.float32)
+    boxes = np.repeat(b, 5, 0)
+    cpu = post_process_anchor(T(boxes), T(cls), nms_thresh=thr)
+    card = post_process_anchor(T(boxes).to(cuda_device), T(cls).to(cuda_device), nms_thresh=thr)
+    assert torch.equal(card[3].cpu(), cpu[3]) and bool(cpu[3].any())
+    for a, c in zip(card[:3], cpu[:3]):
+        np.testing.assert_allclose(a.cpu()[cpu[3]].numpy(), c[cpu[3]].numpy(), atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -130,3 +130,32 @@ def test_clis_need_a_card_unless_cpu(data, monkeypatch):
         train.main(argv)
     with pytest.raises(RuntimeError, match="cuda"):
         test_cli.main(detector_argv(REPO, val_path, root, "cuda", overrides=SHRINK))
+
+
+@pytest.mark.parametrize("model", ["second", "voxel_rcnn"])
+def test_anchor_and_two_stage_detectors_through_both_clis(data, model):
+    """second.yaml and voxel_rcnn.yaml with detection_1sweep.yaml and
+    adam_onecycle.yaml, shrunk as above (Voxel R-CNN also to 32 RoIs a
+    sample): one epoch writes its checkpoint with finite losses (rpn_loss;
+    total_loss with the RoI losses), and the test CLI scores it with every
+    predicted box and every AP/APH value finite."""
+    root, train_path, val_path = data
+    cfgs = (f"tools/cfgs/waymo_models/{model}.yaml",
+            "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
+            "tools/cfgs/optimizers/adam_onecycle.yaml")
+    shrink = SHRINK + (["MODEL.ROI_HEAD.NMS_POST_MAXSIZE", "32"] if model == "voxel_rcnn" else [])
+    res = train.main(detector_argv(REPO, train_path, root, "cpu", "--batch_size", "2", "--epochs",
+                                   "1", "--fix_random_seed", "--extra_tag", "cli", cfgs=cfgs,
+                                   overrides=shrink))
+    hist = res["history"]
+    key = "total_loss" if model == "voxel_rcnn" else "rpn_loss"
+    assert len(hist) == 2 and all(math.isfinite(h["losses"][key]) for h in hist)
+    if model == "voxel_rcnn":
+        assert {"rcnn_loss_cls", "rcnn_loss_reg", "center_loss"} <= set(hist[0]["losses"])
+    assert os.listdir(res["ckpt_dir"]) == ["checkpoint_epoch_1"]
+    argv = detector_argv(REPO, val_path, root, "cpu", "--extra_tag", "cli", cfgs=cfgs,
+                         overrides=shrink)
+    ckpt = str(Path(res["ckpt_dir"]) / "checkpoint_epoch_1")
+    table = test_cli.main(argv[:3] + ["--ckpt", ckpt] + argv[3:])[ckpt]
+    assert {"Vehicle/L1/AP", "Vehicle/L2/APH"} <= set(table)
+    assert all(math.isfinite(v) for v in table.values())

@@ -127,7 +127,9 @@ def test_import_loads_no_jax():
         "       'utils.loss_utils', 'parallel.train_step', 'tools.determinism_cost',\n"
         "       'tools.profile_detector_step', 'test', 'datasets.augmentor',\n"
         "       'runtime.optimization', 'runtime.train_utils', 'runtime.eval_utils',\n"
-        "       'utils.dist_utils', 'parallel.mesh', 'parallel.point_shard']\n"
+        "       'utils.dist_utils', 'parallel.mesh', 'parallel.point_shard',\n"
+        "       'models.roi_heads', 'models.model_nms_utils', 'models.pfe', 'ops.roi_pool',\n"
+        "       'utils.box_coder_utils']\n"
         "missing = [n for n in new if 'pcseqlearning_tpu_torch.' + n not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('pcseqlearning_tpu_torch')]))\n"
         "assert not bad and not missing, (bad, missing)\n"
