@@ -151,9 +151,9 @@ host cost.
                  cell, in float32 and float64 (losses, gradients, batch
                  statistics), then predict on both in float64 (valid masks,
                  boxes and scores; the NMS pairs within 1e-5 of the
-                 threshold), the float32 predictions' distance printed
+                 threshold)
              (b) bench_detector's cell (PointPillar at +-74.8 m): SECOND and
-                 Voxel R-CNN a FLOP-counted step and 8 timed steps, the
+                 Voxel R-CNN a FLOP-counted step and 4 timed steps, the
                  first two repeated bit for bit; SECOND-IoU and PointPillar
                  3 steps; each model's predict with its NMS seconds, NMS
                  memory and kept boxes
@@ -163,6 +163,20 @@ host cost.
                  precise-BN copy of each checkpoint
              Every line starts "# anchor detectors [<card>, <power limit>]";
              no kernel of the port runs (launches 0 / 0 / 0).
+ 11. pv      PartA2 and the PV-RCNN family (part_a2.yaml, pv_rcnn.yaml,
+             pv_rcnn_plusplus.yaml, pv_rcnn_plusplus_cotrain.yaml, each
+             MODEL at full widths; the co-train on the batch without
+             point_valid, and its train-step batch must raise):
+             (a) one train step on the card against the CPU at phase 7(a)'s
+                 cell: float64 strictly (losses 1e-8, gradients 1e-3 of max,
+                 FPS picks equal, predict), float32 within twice JAX's own
+                 float32 error (see pv_detectors_phase)
+             (b) bench_detector's cell: PartA2 and PV-RCNN 8 timed steps,
+                 the first two repeated bit for bit; PV-RCNN++ and the
+                 co-train 2; FPS, PFE and RoI-aware pooling seconds
+             (c) the train and test CLIs with part_a2.yaml and pv_rcnn.yaml
+             Every line starts "# pv detectors [<card>, <power limit>]"; no
+             kernel of the port runs (launches 0 / 0 / 0).
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -1879,43 +1893,59 @@ FP32_GRAD_LIMIT = {"rpn_loss": 4e-2, "center_loss": 8.55e-2, "total_loss": 0.212
 FP32_ROI_STAT_LIMIT = 4.278e-5
 
 
-class NmsMeter:
-    """Wraps ops.boxes.nms_bev while installed: its calls, their summed
-    seconds (synchronized on the card), the largest memory one call takes
-    above what was allocated when it started, and each call's candidates
-    (boxes [K, 7] as float64 on the host, valid [K], threshold)."""
+class CallMeter:
+    """Wraps ``getattr(mod, name)`` while installed: its calls, their summed
+    seconds (synchronized on the card) and the largest memory one call
+    takes above what was allocated when it started; ``record``, if given,
+    sees each call's arguments after it."""
+
+    def __init__(self, mod, name, dev, record=None):
+        import torch
+
+        self.mod, self.name, self.orig = mod, name, getattr(mod, name)
+        self.calls, self.seconds, self.peak_bytes = 0, 0.0, 0
+        cuda = dev.type == "cuda"
+
+        def timed(*args, **kwargs):
+            if cuda:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+                self.peak_bytes = max(self.peak_bytes, torch.cuda.max_memory_allocated() - base)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            if record is not None:
+                record(*args, **kwargs)
+            return out
+
+        setattr(mod, name, timed)
+
+    def restore(self):
+        setattr(self.mod, self.name, self.orig)
+
+
+class NmsMeter(CallMeter):
+    """A ``CallMeter`` on ops.boxes.nms_bev that also keeps each call's
+    candidates in ``inputs`` (boxes [K, 7] as float64 on the host, valid
+    [K], threshold)."""
 
     def __init__(self, dev):
         import torch
 
         from pcseqlearning_tpu_torch.ops import boxes
 
-        self.calls, self.seconds, self.peak_bytes, self.mod = 0, 0.0, 0, boxes
         self.inputs = []
-        self.orig = orig = boxes.nms_bev
-        cuda = dev.type == "cuda"
 
-        def timed(cand, scores, thresh, valid=None):
-            if cuda:
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            keep = orig(cand, scores, thresh, valid=valid)
-            if cuda:
-                torch.cuda.synchronize()
-                self.peak_bytes = max(self.peak_bytes, torch.cuda.max_memory_allocated() - base)
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
+        def record(cand, scores, thresh, valid=None):
             self.inputs.append((cand.detach().double().cpu(),
                                 torch.ones(len(cand), dtype=torch.bool) if valid is None
                                 else valid.cpu(), thresh))
-            return keep
 
-        boxes.nms_bev = timed
-
-    def restore(self):
-        self.mod.nms_bev = self.orig
+        super().__init__(boxes, "nms_bev", dev, record)
 
 
 def set_distance(a, b):
@@ -1957,6 +1987,95 @@ def predict_gaps(card, cpu):
     return torch.equal(cv, pv), box_err, score_err
 
 
+def detector_cli_runs(repo, dev, tag, models, cli, rehearse, extra_tag, extra=None):
+    """Each (model, loss key) of ``models`` through the CLIs as users run
+    them: python -m pcseqlearning_tpu_torch.train with tools/cfgs/waymo_models/
+    <model>.yaml, detection_1sweep.yaml and adam_onecycle.yaml, one epoch at
+    ``cli``'s batch with --fix_random_seed over ``cli``'s train frames (the
+    rehearsal shrinks the grid and widths; ``extra`` maps a model to more
+    --set pairs): losses finite, the checkpoint written; then the test CLI
+    on a precise-BN copy of the checkpoint: every predicted box finite,
+    every Vehicle AP/APH value finite. Logs a line per model under ``tag``;
+    returns failures."""
+    import math
+    import tempfile
+
+    import torch
+
+    from pcseqlearning_tpu_torch import test as test_cli
+    from pcseqlearning_tpu_torch import train
+    from pcseqlearning_tpu_torch.datasets import build_dataloader
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.scene import detector_argv, write_detector_sequences
+
+    extra = extra or {}
+    errs = []
+    frames, points, val_frames, batch_size = cli
+    shrink = [] if not rehearse else [
+        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
+        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
+        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
+        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
+        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        t0 = time.perf_counter()
+        train_path, val_path = write_detector_sequences(root, frames, points, val_frames)
+        log(f"{tag} (c): wrote {frames} train and {val_frames} val frames x {points} points in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for model, key in models:
+            paths = (f"tools/cfgs/waymo_models/{model}.yaml",
+                     "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
+                     "tools/cfgs/optimizers/adam_onecycle.yaml")
+            t0 = time.perf_counter()
+            res = train.main(detector_argv(repo, train_path, root, dev.type, "--batch_size",
+                                           str(batch_size), "--epochs", "1", "--fix_random_seed",
+                                           "--extra_tag", extra_tag, cfgs=paths,
+                                           overrides=shrink + list(extra.get(model, ()))))
+            train_s = time.perf_counter() - t0
+            hist = res["history"]
+            summary = summarize(hist)
+            ckpts = sorted(p.name for p in Path(res["ckpt_dir"]).iterdir())
+            test_argv = detector_argv(repo, val_path, root, dev.type, "--extra_tag", extra_tag,
+                                      cfgs=paths, overrides=shrink + list(extra.get(model, ())))
+            _, tcfg = test_cli.parse_config(test_argv)
+            n_cap = int(tcfg.MODEL.POINT_CAP)
+            val_set, val_loader = build_dataloader(tcfg.DATA_CONFIG, tcfg.CLASS_NAMES, 1,
+                                                   training=False)
+            # the precise-BN statistics come from the train frames, as in phase 8(d)
+            fit_cfg = test_cli.parse_config(detector_argv(
+                repo, train_path, root, dev.type, cfgs=paths,
+                overrides=shrink + list(extra.get(model, ()))))[1]
+            _, fit_loader = build_dataloader(fit_cfg.DATA_CONFIG, fit_cfg.CLASS_NAMES, batch_size,
+                                             training=False)
+            net = build_network(tcfg.MODEL, train.runtime_cfg_of(tcfg), val_set, device=dev)
+            precise = Path(root) / "precise_bn" / model / "checkpoint_epoch_1"
+            precise_bn_copy(Path(res["ckpt_dir"]) / "checkpoint_epoch_1", precise, net,
+                            fit_loader, n_cap, dev)
+            net.load_state_dict(torch.load(precise, map_location="cpu",
+                                           weights_only=True)["model"])
+            stats = eval_forward_stats(net, val_loader, n_cap, dev)
+            del net
+            t1 = time.perf_counter()
+            table = next(iter(test_cli.main(test_argv[:3] + ["--ckpt", str(precise)]
+                                            + test_argv[3:]).values()))
+            vehicle = {k: v for k, v in table.items() if k.startswith("Vehicle/")}
+            log(f"{tag} (c) {model}: train.main {train_s:.1f} s {json.dumps(summary)}; "
+                f"checkpoints {ckpts}; precise-BN copy's eval-mode predict {json.dumps(stats)}; "
+                f"test.main {time.perf_counter() - t1:.1f} s, Vehicle AP/APH "
+                f"{json.dumps(vehicle)}")
+            if not all(math.isfinite(h["losses"][key]) for h in hist):
+                errs.append(f"{model} CLI: a loss is not finite")
+            if ckpts != ["checkpoint_epoch_1"]:
+                errs.append(f"{model} CLI: checkpoints {ckpts}")
+            if stats["not_finite"] or not stats["boxes"]:
+                errs.append(f"{model} CLI: the precise-BN checkpoint predicts {stats}")
+            if not vehicle or not all(math.isfinite(v) for v in vehicle.values()):
+                errs.append(f"{model} CLI: Vehicle AP/APH not finite: {vehicle}")
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return errs
+
+
 def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     """Phase 10: SECOND, SECOND-IoU, PointPillar and Voxel R-CNN as
     second.yaml, second_iou.yaml, pointpillar.yaml and voxel_rcnn.yaml's
@@ -1975,12 +2094,11 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     float64: valid masks equal (a difference only where a pair of the CPU's
     NMS candidates has an IoU within 1e-5 of the threshold; those pairs are
     counted and printed), and on the rows valid in both, as sets, boxes
-    within 1e-4 (of max(1, |value|)) and sorted scores within 1e-5; the
-    float32 predictions' distances are printed, not held. (b) bench_detector's
+    within 1e-4 (of max(1, |value|)) and sorted scores within 1e-5. (b) bench_detector's
     cell (PointPillar's range cut to +-74.8 m: at +-74.88 m its 1498-cell
     pillar grid gives BEV maps of 749, 750 and 752 cells after upsampling,
     which no concatenation takes, in JAX as here): SECOND and Voxel R-CNN
-    a FLOP-counted first step then 8 steps, steps/s, peak memory, MFU, the
+    a FLOP-counted first step then 4 steps, steps/s, peak memory, MFU, the
     losses finite and falling, and the first two steps again from the same
     seed, equal bit for bit; SECOND-IoU and PointPillar 3 steps, losses
     finite, steps/s and peak memory; each model's predict on the batch: NMS
@@ -1993,22 +2111,15 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     Vehicle AP/APH value finite. No kernel of the port runs here (all three
     launch counts 0). Every line names the card and its power limit.
     Returns failures."""
-    import math
-    import tempfile
-
     import numpy as np
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from pcseqlearning_tpu_torch import test as test_cli
-    from pcseqlearning_tpu_torch import train
     from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
-    from pcseqlearning_tpu_torch.datasets import build_dataloader
     from pcseqlearning_tpu_torch.models import build_network
     from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, init_train_state,
                                                              make_train_step)
-    from pcseqlearning_tpu_torch.scene import (bench_detector_batch, detector_argv,
-                                               write_detector_sequences)
+    from pcseqlearning_tpu_torch.scene import bench_detector_batch
     from pcseqlearning_tpu_torch.utils.edict import EDict
 
     tag = f"# anchor detectors [{gpu_line}]"
@@ -2040,8 +2151,8 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
 
         def one_step(device, dtype):
             """One training forward and backward from the seeded weights
-            (the VFE's cells in float32, the network in ``dtype``), then
-            predict, with the candidates of each NMS it ran."""
+            (the VFE's cells in float32, the network in ``dtype``), then, in
+            float64, predict, with the candidates of each NMS it ran."""
             net = build_network(cfgs[model].MODEL, runtime, device=device).to(dtype)
             net.train()
             bd = net(_flatten_local(**{k: torch.as_tensor(v).to(device)
@@ -2058,14 +2169,15 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
                        grads=grads, first_grads=first or grads,
                        stats={n: b.double().cpu() for n, b in net.named_buffers()},
                        rois=None if first is None else bd["rois"].detach().double().cpu())
-            meter = NmsMeter(torch.device(device))
-            try:
-                _, boxes, scores, _, valid = net.predict(_flatten_local(
-                    **{k: torch.as_tensor(v).to(device) for k, v in batch.items()}))
-            finally:
-                meter.restore()
-            res.update(pred=(boxes.double().cpu(), scores.double().cpu(), valid.cpu()),
-                       nms=meter.inputs)
+            if dtype == torch.float64:
+                meter = NmsMeter(torch.device(device))
+                try:
+                    _, boxes, scores, _, valid = net.predict(_flatten_local(
+                        **{k: torch.as_tensor(v).to(device) for k, v in batch.items()}))
+                finally:
+                    meter.restore()
+                res.update(pred=(boxes.double().cpu(), scores.double().cpu(), valid.cpu()),
+                           nms=meter.inputs)
             return res
 
         t0 = time.perf_counter()
@@ -2105,7 +2217,6 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
         rois64, rois32 = ((max(set_distance(a, b) for a, b in zip(x["rois"], y["rois"]))
                            if two_stage else None) for x, y in ((card64, cpu64), (card, cpu)))
         valid_eq, box_err, score_err = predict_gaps(card64["pred"], cpu64["pred"])
-        valid_eq32, box_err32, score_err32 = predict_gaps(card["pred"], cpu["pred"])
         near = [near_threshold_pairs(*c) for c in cpu64["nms"]]
         first_key = "center_loss" if two_stage else key
         fp32_grads = {first_key: dict(card=max(first32.values()), cpu=max(cpu_first32.values()),
@@ -2131,10 +2242,6 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
                                      valid_equal=valid_eq, box_set_distance=box_err,
                                      score_err=score_err, nms_calls=len(near),
                                      nms_pairs_near_threshold=near),
-                   predict_fp32=dict(valid=[int(card["pred"][2].sum()),
-                                            int(cpu["pred"][2].sum())],
-                                     valid_equal=valid_eq32, box_set_distance=box_err32,
-                                     score_err=score_err32),
                    seconds_card=t_card, seconds_cpu=t_cpu)
         log(f"{tag} (a) card vs cpu {json.dumps(rec)}")
         if not (loss_err <= 1e-4 and stat_err <= 1e-5):
@@ -2245,71 +2352,358 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
             errs.append(f"{model} (b): two steps from the same seed differ in {differing[:5]}")
 
     # ---- (c) the CLIs
-    frames, points, val_frames, batch_size = cli
-    shrink = [] if not rehearse else [
-        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
-        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
-        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
-        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
-        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_anchor_") as root:
-        t0 = time.perf_counter()
-        train_path, val_path = write_detector_sequences(root, frames, points, val_frames)
-        log(f"{tag} (c): wrote {frames} train and {val_frames} val frames x {points} points in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for model, key in (("second", "rpn_loss"), ("voxel_rcnn", "total_loss")):
-            paths = (f"tools/cfgs/waymo_models/{model}.yaml",
-                     "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
-                     "tools/cfgs/optimizers/adam_onecycle.yaml")
-            t0 = time.perf_counter()
-            res = train.main(detector_argv(repo, train_path, root, dev.type, "--batch_size",
-                                           str(batch_size), "--epochs", "1", "--fix_random_seed",
-                                           "--extra_tag", "p10", cfgs=paths, overrides=shrink))
-            train_s = time.perf_counter() - t0
-            hist = res["history"]
-            summary = summarize(hist)
-            ckpts = sorted(p.name for p in Path(res["ckpt_dir"]).iterdir())
-            test_argv = detector_argv(repo, val_path, root, dev.type, "--extra_tag", "p10",
-                                      cfgs=paths, overrides=shrink)
-            _, tcfg = test_cli.parse_config(test_argv)
-            n_cap = int(tcfg.MODEL.POINT_CAP)
-            val_set, val_loader = build_dataloader(tcfg.DATA_CONFIG, tcfg.CLASS_NAMES, 1,
-                                                   training=False)
-            # the precise-BN statistics come from the train frames, as in phase 8(d)
-            fit_cfg = test_cli.parse_config(detector_argv(repo, train_path, root, dev.type,
-                                                          cfgs=paths, overrides=shrink))[1]
-            _, fit_loader = build_dataloader(fit_cfg.DATA_CONFIG, fit_cfg.CLASS_NAMES, batch_size,
-                                             training=False)
-            net = build_network(tcfg.MODEL, train.runtime_cfg_of(tcfg), val_set, device=dev)
-            precise = Path(root) / "precise_bn" / model / "checkpoint_epoch_1"
-            precise_bn_copy(Path(res["ckpt_dir"]) / "checkpoint_epoch_1", precise, net,
-                            fit_loader, n_cap, dev)
-            net.load_state_dict(torch.load(precise, map_location="cpu",
-                                           weights_only=True)["model"])
-            stats = eval_forward_stats(net, val_loader, n_cap, dev)
-            del net
-            t1 = time.perf_counter()
-            table = next(iter(test_cli.main(test_argv[:3] + ["--ckpt", str(precise)]
-                                            + test_argv[3:]).values()))
-            vehicle = {k: v for k, v in table.items() if k.startswith("Vehicle/")}
-            log(f"{tag} (c) {model}: train.main {train_s:.1f} s {json.dumps(summary)}; "
-                f"checkpoints {ckpts}; precise-BN copy's eval-mode predict {json.dumps(stats)}; "
-                f"test.main {time.perf_counter() - t1:.1f} s, Vehicle AP/APH "
-                f"{json.dumps(vehicle)}")
-            if not all(math.isfinite(h["losses"][key]) for h in hist):
-                errs.append(f"{model} (c): a loss is not finite")
-            if ckpts != ["checkpoint_epoch_1"]:
-                errs.append(f"{model} (c): checkpoints {ckpts}")
-            if stats["not_finite"] or not stats["boxes"]:
-                errs.append(f"{model} (c): the precise-BN checkpoint predicts {stats}")
-            if not vehicle or not all(math.isfinite(v) for v in vehicle.values()):
-                errs.append(f"{model} (c): Vehicle AP/APH not finite: {vehicle}")
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+    errs += detector_cli_runs(repo, dev, tag, (("second", "rpn_loss"),
+                                               ("voxel_rcnn", "total_loss")), cli, rehearse, "p10")
     launches = {name: fn.launches for name, fn in kernels.items()}
     log(f"{tag}: kernel launches in phase 10 {json.dumps(launches)}")
     if any(launches.values()):
         errs.append(f"phase 10 launched a kernel of the extraction path: {launches}")
+    return errs
+
+
+PV_MODELS = ("part_a2", "pv_rcnn", "pv_rcnn_plusplus", "pv_rcnn_plusplus_cotrain")
+# JAX's own float32 errors against float64 at phase 7(a)'s cell (printed by
+# tests/test_torch_detector_precision.py -k pv_family): (the RoI losses'
+# largest relative error, the total_loss gradients' largest error of a
+# tensor's max |g|); phase 11(a) holds the card's float32 run to twice each
+FP32_PV_LIMITS = {"part_a2": (1.234e-3, 1.025), "pv_rcnn": (4.350e-3, 0.9767),
+                  "pv_rcnn_plusplus": (1.265e-4, 0.654),
+                  "pv_rcnn_plusplus_cotrain": (1.265e-4, 0.654)}
+
+
+class ModuleTimer:
+    """Seconds spent in a module's forward (synchronized on the card),
+    through forward hooks, while installed."""
+
+    def __init__(self, module, dev):
+        import torch
+
+        self.seconds, self.calls, self._t0 = 0.0, 0, None
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+        def pre(*_):
+            sync()
+            self._t0 = time.perf_counter()
+
+        def post(*_):
+            sync()
+            self.seconds += time.perf_counter() - self._t0
+            self.calls += 1
+
+        self.hooks = [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
+
+    def restore(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def first_divergence(a, b):
+    """The first (row, pick) where two [B, S] FPS pick tables differ, or
+    None."""
+    diff = (a != b).nonzero()
+    return None if not len(diff) else [int(v) for v in diff[0]]
+
+
+def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
+    """Phase 11: PartA2 and the PV-RCNN family as part_a2.yaml, pv_rcnn.yaml,
+    pv_rcnn_plusplus.yaml and pv_rcnn_plusplus_cotrain.yaml's MODELs build
+    them (full widths: 4,096 keypoints, 128 RoIs a sample, UNetV2's (16,
+    16, 32, 64, 64)), TF32 off and cuDNN deterministic; the co-train on the
+    batch without ``point_valid`` (its seg head masks the keypoints with the
+    raw points' mask, so the train step's batch raises, as in JAX: checked).
+    (a) Card against CPU at phase 7(a)'s cut cell, one train step of
+    total_loss each, in float64 then predict. In float64: losses within 1e-8
+    relative, every gradient within 1e-3 of its tensor's max, batch
+    statistics 1e-5 of max(1, |v|), the RoIs within 1e-4 as sets, the FPS
+    picks equal, predict's valid masks equal, boxes within 1e-4 as sets and
+    sorted scores within 1e-5. The card's float32 step against the CPU's
+    float64: the first-stage losses within 1e-4 relative, the RoI losses
+    within twice JAX's own float32 error, and every gradient within twice
+    JAX's own float32 error of float64 (twice, as
+    tests/test_torch_detector_precision.py holds the port's CPU; JAX's
+    errors in ``FP32_PV_LIMITS``); the first FPS pick where the card's
+    float32 run and the CPU's float32 FPS diverge is printed. (b) bench_detector's
+    cell: PartA2 and PV-RCNN a FLOP-counted step and 8 timed steps (losses
+    finite and falling), the first two repeated bit for bit; PV-RCNN++ and
+    the co-train 2 steps; steps/s, peak memory, MFU, then one step more with FPS, the
+    PFE and RoI-aware pooling timed (seconds, and the pooling's memory), and
+    predict. (c) The train and test CLIs with part_a2.yaml and pv_rcnn.yaml
+    (``detector_cli_runs``). No kernel of the port runs here (all three
+    launch counts 0). Every line names the card and its power limit.
+    Returns failures."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.ops import roi_pool, sampling
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, init_train_state,
+                                                             make_train_step)
+    from pcseqlearning_tpu_torch.scene import bench_detector_batch
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    tag = f"# pv detectors [{gpu_line}]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    (a_extent, a_points, a_cap), (b_extent, b_points, b_cap, b_batch, b_steps), cli = sizes
+    cfgs = {m: cfg_from_yaml_file(str(repo / f"tools/cfgs/waymo_models/{m}.yaml"), EDict())
+            for m in PV_MODELS}
+    errs = []
+    for fn in kernels.values():
+        fn.launches = 0
+
+    def runtime_of(model, extent, cap):
+        return dict(data_cfg={"POINT_CLOUD_RANGE": [-extent, -extent, -2.0, extent, extent, 4.0],
+                              "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                    class_names=list(cfgs[model].CLASS_NAMES), voxel_cap=cap)
+
+    def flat_of(batch, device, model):
+        flat = _flatten_local(**{k: torch.as_tensor(v).to(device) for k, v in batch.items()})
+        if "cotrain" in model:
+            flat.pop("point_valid")
+        return flat
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    # ---- (a) card against CPU
+    batch = bench_detector_batch(2, a_points, a_extent - 0.5, seed=1)
+    for model in PV_MODELS:
+        runtime = runtime_of(model, a_extent, a_cap)
+
+        def one_step(device, dtype):
+            """One training forward and backward of total_loss from the seeded
+            weights (the network in ``dtype``), then, in float64, predict."""
+            net = build_network(cfgs[model].MODEL, runtime, device=device).to(dtype)
+            net.train()
+            bd = net(flat_of(batch, device, model))
+            bd["losses"]["total_loss"].backward()
+            picks = bd.get("keypoint_indices")
+            res = dict(losses={k: float(v.detach()) for k, v in bd["losses"].items()},
+                       grads={n: p.grad.double().cpu() for n, p in net.named_parameters()
+                              if p.grad is not None},
+                       stats={n: b.double().cpu() for n, b in net.named_buffers()},
+                       rois=bd["rois"].detach().double().cpu(),
+                       picks=None if picks is None else picks.reshape(2, -1).cpu())
+            if dtype == torch.float64:
+                meter = NmsMeter(torch.device(device))
+                try:
+                    _, boxes, scores, _, valid = net.predict(flat_of(batch, device, model))
+                finally:
+                    meter.restore()
+                res.update(pred=(boxes.double().cpu(), scores.double().cpu(), valid.cpu()),
+                           nms=meter.inputs)
+            return res
+
+        t0 = time.perf_counter()
+        card, card64 = one_step(dev, torch.float32), one_step(dev, torch.float64)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu64 = one_step(torch.device("cpu"), torch.float64)
+        fps = cpu64["picks"] is not None
+        if fps:  # the keypoint branch's FPS alone, float32, on the CPU
+            flat = flat_of(batch, "cpu", model)
+            pts = flat["point_bxyz"]
+            masks = ((torch.round(pts[:, 0]).long()[None] == torch.arange(2)[:, None])
+                     & flat.get("point_valid", torch.ones(len(pts), dtype=torch.bool)))
+            cpu_picks32 = sampling.batched_farthest_point_sample(
+                pts[:, 1:4], int(cfgs[model].MODEL.PFE.NUM_KEYPOINTS), masks)
+        t_cpu = time.perf_counter() - t0
+
+        def grad_errs(a, b):
+            return {n: float((a["grads"][n] - g).abs().max() / max(float(g.abs().max()), 1e-30))
+                    for n, g in b["grads"].items()}
+
+        def stat_errs(a, b):
+            return {n: float((a["stats"][n] - v).abs().max() / max(1.0, float(v.abs().max())))
+                    for n, v in b["stats"].items()}
+
+        def worst(errs, k=3):
+            return sorted(errs.items(), key=lambda kv: -kv[1])[:k]
+
+        roi_keys = ("rcnn_loss_cls", "rcnn_loss_reg", "total_loss")
+        loss32 = max(rel(card["losses"][k], v) for k, v in cpu64["losses"].items()
+                     if k not in roi_keys)
+        roi_loss32 = max(rel(card["losses"][k], v) for k, v in cpu64["losses"].items()
+                         if k in roi_keys)
+        loss64 = max(rel(card64["losses"][k], v) for k, v in cpu64["losses"].items())
+        same_grads = set(card64["grads"]) == set(cpu64["grads"]) == set(card["grads"])
+        grad64 = max(grad_errs(card64, cpu64).values())
+        stat64 = max(stat_errs(card64, cpu64).values())
+        g32 = grad_errs(card, cpu64)
+        rois64 = max(set_distance(a, b) for a, b in zip(card64["rois"], cpu64["rois"]))
+        rois32 = max(set_distance(a, b) for a, b in zip(card["rois"], cpu64["rois"]))
+        valid_eq, box_err, score_err = predict_gaps(card64["pred"], cpu64["pred"])
+        near = [near_threshold_pairs(*c) for c in cpu64["nms"]]
+        picks_eq64 = fps and torch.equal(card64["picks"], cpu64["picks"])
+        loss_limit, grad_limit = (2 * x for x in FP32_PV_LIMITS[model])
+        raised = None
+        if "cotrain" in model:  # the train step's batch carries point_valid
+            net = build_network(cfgs[model].MODEL, runtime, device=dev)
+            net.train()
+            try:
+                net(_flatten_local(**{k: torch.as_tensor(v).to(dev) for k, v in batch.items()}))
+                raised = False
+            except ValueError:
+                raised = True
+            del net
+        rec = dict(model=model, range_m=a_extent, points=[2, a_points], voxel_cap=a_cap,
+                   losses_card=card["losses"], fp32_first_stage_loss_rel_err=loss32,
+                   roi_losses_fp32_rel_err_against_cpu_fp64=dict(card=roi_loss32,
+                                                                 limit=loss_limit),
+                   fp32_batch_stats_err_of_max_1=worst(stat_errs(card, cpu64), 3),
+                   fp64=dict(loss_rel_err=loss64, grad_err_of_max=grad64,
+                             worst_grads=worst(grad_errs(card64, cpu64)),
+                             batch_stats_err_of_max_1=stat64, rois_set_distance=rois64,
+                             fps_picks_equal=picks_eq64 if fps else None),
+                   fp32_grad_err_of_max_against_cpu_fp64=dict(
+                       card=max(g32.values()), limit=grad_limit,
+                       worst_card=worst(g32)),
+                   rois_set_distance_fp32=rois32,
+                   fps_first_divergence_fp32=(first_divergence(card["picks"], cpu_picks32)
+                                              if fps else None),
+                   fps_first_divergence_fp32_vs_fp64=(
+                       first_divergence(cpu_picks32, cpu64["picks"]) if fps else None),
+                   predict_fp64=dict(valid=[int(card64["pred"][2].sum()),
+                                            int(cpu64["pred"][2].sum())],
+                                     valid_equal=valid_eq, box_set_distance=box_err,
+                                     score_err=score_err, nms_pairs_near_threshold=near),
+                   train_step_batch_raises=raised, seconds_card=t_card, seconds_cpu=t_cpu)
+        log(f"{tag} (a) card vs cpu {json.dumps(rec)}")
+        if not same_grads:
+            errs.append(f"{model} (a): the parameters with a gradient differ between runs")
+        if not (loss32 <= 1e-4 and roi_loss32 <= loss_limit):
+            errs.append(f"{model} (a) float32: first-stage loss {loss32:.2e} (1e-4), RoI loss "
+                        f"{roi_loss32:.2e} from the CPU's float64 ({loss_limit:.3e})")
+        if not (loss64 <= 1e-8 and grad64 <= 1e-3 and stat64 <= 1e-5 and rois64 <= 1e-4):
+            errs.append(f"{model} (a) float64: loss {loss64:.2e} (1e-8), grad {grad64:.2e} "
+                        f"(1e-3 of max), batch stats {stat64:.2e} (1e-5 of max(1, |v|)), RoIs "
+                        f"{rois64:.2e} (1e-4)")
+        if fps and not picks_eq64:
+            errs.append(f"{model} (a) float64: the FPS picks differ from the CPU's")
+        if not (valid_eq and box_err <= 1e-4 and score_err <= 1e-5):
+            errs.append(f"{model} (a) float64 predict: valid masks equal {valid_eq}, boxes "
+                        f"{box_err:.2e} (1e-4), scores {score_err:.2e} (1e-5)")
+        if not max(g32.values()) <= grad_limit:
+            errs.append(f"{model} (a): float32 gradients {max(g32.values()):.2e} of a tensor's "
+                        f"max from the CPU's float64 ({grad_limit}): {worst(g32)}")
+        if raised is False:
+            errs.append(f"{model} (a): the train step's batch (with point_valid) did not raise")
+        del card, card64, cpu64
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---- (b) bench_detector's cell, full width
+    for model in PV_MODELS:
+        runtime = runtime_of(model, b_extent, b_cap)
+        dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in bench_detector_batch(
+            b_batch, b_points, 70.0 if b_extent > 70 else b_extent - 0.5).items()}
+        full = model in ("part_a2", "pv_rcnn")
+        steps = b_steps if full else 2
+        if "cotrain" in model:
+            def step(state, batch):
+                state.model.train()
+                out = state.model(flat_of(batch, dev, model))
+                losses = {k: v.detach() for k, v in out["losses"].items()}
+                state.optimizer.zero_grad()
+                out["losses"]["total_loss"].backward()
+                state.optimizer.step()
+                state.step += 1
+                return state, losses
+        else:
+            step = make_train_step(loss_key="total_loss", device=dev)
+        state = init_train_state(build_network(cfgs[model].MODEL, runtime, device=dev), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as counter:
+            state, losses = step(state, dev_batch)
+        first_s = time.perf_counter() - t0
+        flops = float(counter.get_total_flops())
+        loss_seq, durs, two = [float(losses["total_loss"])], [], [losses]
+        t_prev = time.perf_counter()
+        for i in range(steps):
+            state, losses = step(state, dev_batch)
+            loss_seq.append(float(losses["total_loss"]))
+            now = time.perf_counter()
+            durs.append(now - t_prev)
+            t_prev = now
+            if i == 0:
+                two.append(losses)
+                first_run = ([{k: float(v) for k, v in ls.items()} for ls in two],
+                             {n: p.grad.clone() for n, p in state.model.named_parameters()
+                              if p.grad is not None},
+                             {n: p.detach().clone() for n, p in state.model.named_parameters()})
+        dt = sorted(durs[1:] or durs)[len(durs[1:] or durs) // 2]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        meters = [CallMeter(sampling, "batched_farthest_point_sample", dev),
+                  CallMeter(roi_pool, "roiaware_pool3d", dev)]
+        pfe = ModuleTimer(state.model.pfe, dev) if state.model.pfe is not None else None
+        try:
+            t0 = time.perf_counter()
+            state, _ = step(state, dev_batch)
+            metered_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, boxes, scores, _, valid = state.model.predict(flat_of(dev_batch, dev, model))
+            predict_s = time.perf_counter() - t0
+        finally:
+            for m in meters + ([pfe] if pfe else []):
+                m.restore()
+        fps_m, pool_m = meters
+        kept = valid.sum(1).tolist()
+        finite_boxes = bool(torch.isfinite(boxes[valid]).all())
+        repeats, differing = None, []
+        if full:
+            state = init_train_state(build_network(cfgs[model].MODEL, runtime, device=dev),
+                                     device=dev)
+            two = []
+            for _ in range(2):
+                state, losses = step(state, dev_batch)
+                two.append(losses)
+            again = ([{k: float(v) for k, v in ls.items()} for ls in two],
+                     {n: p.grad.clone() for n, p in state.model.named_parameters()
+                      if p.grad is not None},
+                     {n: p.detach().clone() for n, p in state.model.named_parameters()})
+            differing = [n for n in first_run[2]
+                         if not (torch.equal(first_run[2][n], again[2][n])
+                                 and torch.equal(first_run[1].get(n, again[2][n]),
+                                                 again[1].get(n, again[2][n])))]
+            repeats = first_run[0] == again[0] and not differing
+            del again
+        del state, first_run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec = dict(model=model, cell="bench_detector", range_m=b_extent,
+                   points=[b_batch, b_points], voxel_cap=b_cap, steps=steps,
+                   first_step_s=first_s, step_s=durs, steps_per_s=1.0 / dt, peak_gb=peak_gb,
+                   losses=loss_seq, flops_per_step=flops,
+                   mfu=flops / dt / PEAK_FP32_FLOPS if dev.type == "cuda" else None,
+                   mfu_peak="67 TFLOP/s float32, TF32 off", metered_step_s=metered_s,
+                   fps_s=fps_m.seconds, fps_calls=fps_m.calls,
+                   pfe_s=pfe.seconds if pfe else None, pfe_calls=pfe.calls if pfe else 0,
+                   roiaware_s=pool_m.seconds, roiaware_calls=pool_m.calls,
+                   roiaware_peak_gb=pool_m.peak_bytes / 1e9, predict_s=predict_s,
+                   kept_boxes=kept, kept_boxes_finite=finite_boxes,
+                   two_steps_repeat_bit_for_bit=repeats, tensors_differing_on_repeat=differing[:5])
+        log(f"{tag} (b) {json.dumps(rec)}")
+        if not all(np.isfinite(loss_seq)) or (full and not loss_seq[-1] < loss_seq[0]):
+            errs.append(f"{model} (b): losses {loss_seq} not finite{' and falling' * full}")
+        if full and not repeats:
+            errs.append(f"{model} (b): two steps from the same seed differ in {differing[:5]}")
+        if not finite_boxes:
+            errs.append(f"{model} (b): predict gave non-finite boxes")
+
+    # ---- (c) the CLIs
+    extra = {"pv_rcnn": ["MODEL.PFE.NUM_KEYPOINTS", "256"]} if rehearse else None
+    errs += detector_cli_runs(repo, dev, tag, (("part_a2", "total_loss"),
+                                               ("pv_rcnn", "total_loss")), cli, rehearse, "p11",
+                              extra)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{tag}: kernel launches in phase 11 {json.dumps(launches)}")
+    if any(launches.values()):
+        errs.append(f"phase 11 launched a kernel of the extraction path: {launches}")
     return errs
 
 
@@ -2336,7 +2730,7 @@ def main():
         walk_size, rigid_sizes, entry_size = (10, 2500), (60, 400), (4, 600)
         detector_sizes = (3.2, 500, 1024), (3.2, 500, 1024, 2, 3)
         cli_size = (4, 3000, 2, 2)
-        anchor_sizes = ((3.2, 500, 1024), (3.2, 500, 1024, 2, 2), cli_size)
+        anchor_sizes = pv_sizes = ((3.2, 500, 1024), (3.2, 500, 1024, 2, 2), cli_size)
         dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
             "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
             "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
@@ -2366,9 +2760,11 @@ def main():
         # ~114k against cap / 4); (c) the bench scene's first 20 frames
         dist_sizes = ((19.2, 20_000, 300_000), (4, 40_000, 30_000, 600_000, []),
                       (20, 90_000, 2, 10))
-        # phase 10: (a) phase 7(a)'s cell, (b) bench_detector's, (c) phase 8's
-        # train frames at batch 2, one epoch
-        anchor_sizes = (detector_sizes[0], detector_sizes[1], (16, 160_000, 4, 2))
+        # phases 10 and 11: (a) phase 7(a)'s cell, (b) bench_detector's (phase
+        # 10's steps cut from 8 to 4, for the run's time), (c) phase 8's train
+        # frames at batch 2, one epoch
+        pv_sizes = (detector_sizes[0], detector_sizes[1], (16, 160_000, 4, 2))
+        anchor_sizes = (pv_sizes[0], pv_sizes[1][:4] + (4,), pv_sizes[2])
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -2625,6 +3021,13 @@ def main():
     t0 = time.perf_counter()
     errs = anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, anchor_sizes)
     log(f"# phase 10: {time.perf_counter() - t0:.1f} s")
+    if errs:
+        fail("; ".join(errs))
+
+    # ---- 11. PartA2 and the PV-RCNN family ---------------------------------------
+    t0 = time.perf_counter()
+    errs = pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, pv_sizes)
+    log(f"# phase 11: {time.perf_counter() - t0:.1f} s")
     if errs:
         fail("; ".join(errs))
 

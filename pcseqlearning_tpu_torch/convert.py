@@ -63,18 +63,21 @@ _FLAX_NAMES = {"MaskedBatchNorm_0": "bn", "SubMConvBlock_0": "conv0", "SubMConvB
                "Conv_2": "center", "Conv_3": "center_z", "Conv_4": "dim", "Conv_5": "rot"}
 _FLAX_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
                 ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
-                ("batch_stats", "var"): "running_var"}
+                ("batch_stats", "var"): "running_var",
+                ("params", "group_kernel"): "group_kernel"}
 
 
-# flax's auto-named layers of the pillar VFE's PFN (under "vfe") and of the
-# RoI head's FC trunk (under "head"): Dense_i -> linear{i},
-# MaskedBatchNorm_i -> norm{i}
+# flax's auto-named layers: Dense_i -> linear{i}, MaskedBatchNorm_i ->
+# norm{i}, under the pillar VFE's PFN ("vfe"), the RoI heads' FC trunk
+# ("head") and PVRCNNHead's pooling MLP ("roi_head"), the keypoint branch
+# ("pfe") and its SA groups ("sa_<source>"), and the co-train's seg head
 _AUTO_NAMED = re.compile(r"(Dense|MaskedBatchNorm)_(\d+)$")
+_AUTO_PARENTS = ("vfe", "head", "roi_head", "pfe", "seg_head")
 
 
 def _port_name(parent, name):
     hit = _AUTO_NAMED.match(name)
-    if hit and parent in ("vfe", "head"):
+    if hit and (parent in _AUTO_PARENTS or parent.startswith("sa_")):
         return ("linear" if hit[1] == "Dense" else "norm") + hit[2]
     return _FLAX_NAMES.get(name, name)
 
@@ -93,8 +96,9 @@ def detector_params_from_flax(variables):
     exactly once.
 
     Layouts: sparse conv kernels stay [K, Cin, Cout] (offsets in
-    ``itertools.product`` (dz, dy, dx) order); flax Dense kernels (in, out)
-    become torch's Linear (out, in); flax Conv kernels (H, W, in,
+    ``itertools.product`` (dz, dy, dx) order), and so does the vector
+    pool's per-voxel ``group_kernel`` [V, Cin, Cout]; flax Dense kernels
+    (in, out) become torch's Linear (out, in); flax Conv kernels (H, W, in,
     out) become torch's (out, in, H, W); flax ConvTranspose kernels (u, u,
     in, out) become torch's (in, out, u, u) flipped in both spatial axes,
     since flax's transposed conv (``transpose_kernel=False``) does not flip

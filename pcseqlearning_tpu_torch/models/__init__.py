@@ -1,12 +1,14 @@
 """Model registry (counterpart of pcseqlearning_tpu.models): ``build_network``
 dispatches on MODEL.NAME. The port has the extraction pipeline's entry model,
 ``SimpleReg``, and the detectors CenterPoint, SECONDNet, SECONDNetIoU,
-PointPillar and VoxelRCNN; the other detectors raise NotImplementedError
-naming the ROADMAP.md item that ports them."""
+PointPillar, VoxelRCNN, PartA2Net, PVRCNN, PVRCNNPlusPlus and
+PVRCNNPlusPlusCoTrain; the other detectors raise NotImplementedError naming
+the ROADMAP.md item that ports them."""
 
 from __future__ import annotations
 
-DETECTORS = ("CenterPoint", "SECONDNet", "SECONDNetIoU", "PointPillar", "VoxelRCNN")
+DETECTORS = ("CenterPoint", "SECONDNet", "SECONDNetIoU", "PointPillar", "VoxelRCNN",
+             "PartA2Net", "PVRCNN", "PVRCNNPlusPlus", "PVRCNNPlusPlusCoTrain")
 
 
 def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):

@@ -337,36 +337,43 @@ class CenterHead(nn.Module):
         return batch_dict
 
     def _geometry(self, device):
-        pcr = torch.tensor(self.point_cloud_range, dtype=torch.float32, device=device)
+        """(range, cell sizes vx, vy, feature map width, height), float32
+        as in JAX. The cell sizes are divided on the host: on the card a
+        tensor divided by a Python number is multiplied by its reciprocal,
+        which can round the last bit otherwise."""
+        pcr = torch.tensor(self.point_cloud_range, dtype=torch.float32)
         nx, ny = self.grid_size_xy
         fx = -(-nx // self.feature_stride)
         fy = -(-ny // self.feature_stride)
-        return pcr, (pcr[3] - pcr[0]) / nx, (pcr[4] - pcr[1]) / ny, fx, fy
+        return (pcr.to(device), ((pcr[3] - pcr[0]) / nx).to(device),
+                ((pcr[4] - pcr[1]) / ny).to(device), fx, fy)
 
     def build_targets(self, gt_boxes):
         """gt_boxes [B, G, 8] (box, class; class 0 pads). Returns heatmap
         [B, fy, fx, ncls], reg targets [B, K, 8], inds [B, K], mask [B, K]
-        with K = max_objs."""
+        with K = max_objs, in the boxes' dtype (float32 as in JAX, or float64
+        for a network run in float64, whose targets then carry no float32
+        rounding)."""
         pcr, vx, vy, fx, fy = self._geometry(gt_boxes.device)
-        s = self.feature_stride
+        s, dt = self.feature_stride, gt_boxes.dtype
         boxes, cls = gt_boxes[..., :7], gt_boxes[..., 7].to(torch.int32)
         cx = (boxes[..., 0] - pcr[0]) / vx / s
         cy = (boxes[..., 1] - pcr[1]) / vy / s
         dx = boxes[..., 3] / vx / s
         dy = boxes[..., 4] / vy / s
         radius = gaussian_radius(dy, dx, self.gaussian_overlap)
-        radius = torch.clamp(radius.to(torch.int32), min=self.min_radius).to(torch.float32)
+        radius = torch.clamp(radius.to(torch.int32), min=self.min_radius).to(dt)
         ix = torch.clamp(cx.to(torch.int32), 0, fx - 1)
         iy = torch.clamp(cy.to(torch.int32), 0, fy - 1)
         ok = (cls > 0) & (cx >= 0) & (cx < fx) & (cy >= 0) & (cy < fy) & (dx > 0) & (dy > 0)
 
         # the heatmap: per class, the max over its boxes of their gaussians
         dev = gt_boxes.device
-        xg = torch.arange(fx, dtype=torch.float32, device=dev)
-        yg = torch.arange(fy, dtype=torch.float32, device=dev)
+        xg = torch.arange(fx, dtype=dt, device=dev)
+        yg = torch.arange(fy, dtype=dt, device=dev)
         sigma = radius / 3.0
-        d2 = ((xg[None, None, None, :] - ix.to(torch.float32)[..., None, None]) ** 2
-              + (yg[None, None, :, None] - iy.to(torch.float32)[..., None, None]) ** 2)
+        d2 = ((xg[None, None, None, :] - ix.to(dt)[..., None, None]) ** 2
+              + (yg[None, None, :, None] - iy.to(dt)[..., None, None]) ** 2)
         g = torch.exp(-d2 / torch.clamp(2 * sigma * sigma, min=1e-6)[..., None, None])
         g = torch.where(ok[..., None, None], g, torch.zeros((), device=dev))  # [B, G, fy, fx]
         c = torch.clamp(cls - 1, 0, self.num_classes - 1)
@@ -374,7 +381,7 @@ class CenterHead(nn.Module):
         hm = (g[..., None] * onehot[:, :, None, None, :]).amax(dim=1)
 
         K, G = self.max_objs, gt_boxes.shape[1]
-        src = torch.stack([cx - ix.to(torch.float32), cy - iy.to(torch.float32), boxes[..., 2],
+        src = torch.stack([cx - ix.to(dt), cy - iy.to(dt), boxes[..., 2],
                            torch.log(torch.clamp(boxes[..., 3], min=1e-5)),
                            torch.log(torch.clamp(boxes[..., 4], min=1e-5)),
                            torch.log(torch.clamp(boxes[..., 5], min=1e-5)),

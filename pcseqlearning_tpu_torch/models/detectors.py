@@ -1,8 +1,9 @@
 """Detector assembly (counterpart of pcseqlearning_tpu.models.detectors):
-the config-driven module stack vfe -> backbone_3d -> map_to_bev ->
-backbone_2d -> dense_head, then, for a two-stage model, the RoI stage.
-It builds CenterPoint, SECONDNet, SECONDNetIoU, PointPillar and VoxelRCNN
-as their configs name their modules. Every other module name of the JAX
+the config-driven module stack vfe -> backbone_3d -> map_to_bev -> pfe ->
+backbone_2d -> dense_head (-> seg_head), then, for a two-stage model, the
+RoI stage. It builds CenterPoint, SECONDNet, SECONDNetIoU, PointPillar,
+VoxelRCNN, PartA2Net, PVRCNN, PVRCNNPlusPlus and PVRCNNPlusPlusCoTrain as
+their configs name their modules. Every other module name of the JAX
 package raises NotImplementedError naming the ROADMAP.md item that ports
 it.
 """
@@ -18,17 +19,16 @@ from ..ops import sparse_conv as sc
 from . import roi_heads as rh
 from .backbones_2d import BaseBEVBackbone, HeightCompression, PointPillarScatter
 from .backbones_3d import BACKBONES_3D
+from .backbones_point import PointHeadSimple
+from .backbones_unet import UNetV2, stage4_depth
 from .dense_heads import AnchorHeadSingle, CenterHead
 from .model_nms_utils import argsort_desc, top_k
+from .pfe import VoxelSetAbstraction
 from .vfe import DynamicMeanVFE, DynPillarVFE
 
 # what is left of ROADMAP.md queue 1 item 4, and the module names each part
 # brings
 _LEFT = {
-    "4.1 (PartA2)": ("PartA2Net", "UNetV2", "PartA2FCHead", "SECONDHead"),
-    "4.2 (PV-RCNN, PV-RCNN++ and its co-train)": (
-        "PVRCNN", "PVRCNNPlusPlus", "PVRCNNPlusPlusCoTrain", "VoxelSetAbstraction",
-        "PVRCNNHead", "PointSegHead", "PointHeadSimple"),
     "4.3 (PointRCNN)": ("PointRCNN", "PointNet2MSG", "PointNet2Backbone", "PointHeadBox",
                         "PointRCNNHead"),
     "4.4 (SST-CenterPoint)": ("SST", "SSTBackbone"),
@@ -91,11 +91,6 @@ class Detector3DTemplate(nn.Module):
         super().__init__()
         cfg = model_cfg
         name = str(cfg.get("NAME", ""))
-        if "CoTrain" in name:
-            raise unported("the detector", name)
-        for key in ("PFE", "SEG_HEAD"):
-            if key in cfg:
-                raise unported(key, cfg[key].get("NAME"))
         vfe_cfg = cfg.get("VFE", {})
         vfe_name = vfe_cfg.get("NAME")
         bev_channels = num_point_features  # the VFE's width, for a pillar scatter
@@ -111,13 +106,17 @@ class Detector3DTemplate(nn.Module):
         self.backbone_3d = None
         if "BACKBONE_3D" in cfg:
             b3d = cfg["BACKBONE_3D"].get("NAME")
-            if b3d not in BACKBONES_3D:
+            kw = dict(dense_table_cap=dense_table_cap, generator=generator)
+            if b3d == "UNetV2":  # no conv_out: x_conv4 goes to the BEV
+                self.backbone_3d = UNetV2(num_point_features, grid_size, voxel_cap, **kw)
+                bev_channels = self.backbone_3d.channels[4] * stage4_depth(grid_size[2])
+            elif b3d in BACKBONES_3D:
+                self.backbone_3d = BACKBONES_3D[b3d](num_point_features, grid_size, voxel_cap,
+                                                     **kw)
+                bev_channels = (self.backbone_3d.conv_out.weight.shape[-1]
+                                * _conv_out_depth(grid_size[2]))
+            else:
                 raise unported("the 3D backbone", b3d)
-            self.backbone_3d = BACKBONES_3D[b3d](
-                num_point_features, grid_size, voxel_cap,
-                dense_table_cap=dense_table_cap, generator=generator)
-            bev_channels = (self.backbone_3d.conv_out.weight.shape[-1]
-                            * _conv_out_depth(grid_size[2]))
         m2b = cfg.get("MAP_TO_BEV", {"NAME": "HeightCompression"})["NAME"]
         if m2b == "HeightCompression":
             self.map_to_bev = HeightCompression()
@@ -125,6 +124,20 @@ class Detector3DTemplate(nn.Module):
             self.map_to_bev = PointPillarScatter(grid_size)
         else:
             raise unported("MAP_TO_BEV", m2b)
+        # PV-RCNN's keypoint branch, between the BEV map and the 2D backbone;
+        # a PlusPlus model aggregates by vector pooling unless the config says
+        self.pfe = None
+        if "PFE" in cfg:
+            pfe_cfg = cfg["PFE"]
+            self.pfe = VoxelSetAbstraction(
+                voxel_size, point_cloud_range,
+                num_keypoints=int(pfe_cfg.get("NUM_KEYPOINTS", 2048)),
+                source_channels={"x_conv3": self.backbone_3d.channels[3],
+                                 "x_conv4": self.backbone_3d.channels[4]},
+                raw_channels=num_point_features - 3, bev_channels=bev_channels,
+                aggregation=str(pfe_cfg.get("AGGREGATION",
+                                            "vector_pool" if "PlusPlus" in name else "sa")),
+                generator=generator)
         b2d = cfg.get("BACKBONE_2D", {"NAME": "BaseBEVBackbone"})
         self.backbone_2d = BaseBEVBackbone(
             bev_channels,
@@ -134,15 +147,29 @@ class Detector3DTemplate(nn.Module):
             upsample_strides=b2d.get("UPSAMPLE_STRIDES", [1, 2]),
             num_upsample_filters=b2d.get("NUM_UPSAMPLE_FILTERS", [256, 256]),
             generator=generator)
+        # the co-train's segmentation head over the keypoints: PointHeadSimple
+        # whatever SEG_HEAD names, as in JAX
+        self.seg_head = None
+        if "SEG_HEAD" in cfg or "CoTrain" in name:
+            self.seg_head = PointHeadSimple(self.pfe.out_channels, num_classes,
+                                            generator=generator)
         self.roi_head = None
         if "ROI_HEAD" in cfg:
             rcfg = cfg["ROI_HEAD"]
-            if rcfg["NAME"] not in rh.ROI_HEADS:
-                raise unported("the RoI head", rcfg["NAME"])
-            # it pools x_conv3 and x_conv4, the 3D backbone's last two stages
-            self.roi_head = rh.ROI_HEADS[rcfg["NAME"]](
-                voxel_size, point_cloud_range, source_channels=self.backbone_3d.channels[3:5],
-                grid_size=int(rcfg.get("GRID_SIZE", 6)), generator=generator)
+            rname = rcfg["NAME"]
+            grid = int(rcfg.get("GRID_SIZE", 6))
+            if rname == "VoxelRCNNHead":  # pools x_conv3 and x_conv4
+                self.roi_head = rh.VoxelRCNNHead(
+                    voxel_size, point_cloud_range, source_channels=self.backbone_3d.channels[3:5],
+                    grid_size=grid, generator=generator)
+            elif rname == "PVRCNNHead":  # pools the PFE's keypoints
+                self.roi_head = rh.PVRCNNHead(self.pfe.out_channels, grid_size=grid,
+                                              generator=generator)
+            elif rname in rh.ROI_HEADS:  # RoI-aware pooling of the raw point features,
+                # at the head's own grid (JAX builds it with its defaults)
+                self.roi_head = rh.ROI_HEADS[rname](num_point_features - 3, generator=generator)
+            else:
+                raise unported("the RoI head", rname)
             self.num_rois = int(rcfg.get("NMS_POST_MAXSIZE", 128))
         head = cfg["DENSE_HEAD"]
         stride = int(head.get("FEATURE_MAP_STRIDE", 1 if self.backbone_3d is None else 8))
@@ -162,15 +189,26 @@ class Detector3DTemplate(nn.Module):
 
     def forward(self, batch_dict):
         """The VFE computes its cells in the points' dtype; what it returns
-        goes on in the network's (the dense head's parameters')."""
+        goes on in the network's (the dense head's parameters'). The
+        co-train's segmentation loss (``seg_loss``) adds to the dense head's
+        loss, and so to ``total_loss``."""
         dtype = next(self.dense_head.parameters()).dtype
         batch_dict = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
                       for k, v in self.vfe(batch_dict).items()}
-        for module in (self.backbone_3d, self.map_to_bev, self.backbone_2d, self.dense_head):
+        for module in (self.backbone_3d, self.map_to_bev, self.pfe, self.backbone_2d,
+                       self.dense_head):
             if module is not None:
                 batch_dict = module(batch_dict)
         if self.training:
             batch_dict["losses"] = self.dense_head.loss(batch_dict)
+        if self.seg_head is not None:
+            batch_dict = self.seg_head(batch_dict)
+            if self.training:
+                seg = PointHeadSimple.loss(batch_dict, batch_dict["gt_boxes"])
+                losses = dict(batch_dict["losses"], seg_loss=seg)
+                base = "center_loss" if "center_loss" in losses else "rpn_loss"
+                losses[base] = losses[base] + seg
+                batch_dict["losses"] = losses
         if self.roi_head is not None:
             batch_dict = self._run_roi_stage(batch_dict)
         return batch_dict

@@ -1,8 +1,9 @@
 """RoI heads (counterpart of pcseqlearning_tpu.models.roi_heads): the
 proposal layer, RoI target assignment, the refinement decode and losses
-that every two-stage model shares, and ``VoxelRCNNHead``. The JAX
-package's other RoI heads raise NotImplementedError in the detector's
-setup, naming the ROADMAP.md item that ports them.
+that every two-stage model shares, and the pooled-feature heads
+``VoxelRCNNHead``, ``PVRCNNHead``, ``PartA2FCHead`` and ``SECONDHead``.
+``PointRCNNHead`` raises NotImplementedError in the detector's setup,
+naming the ROADMAP.md item that ports it.
 
 No gradient is stopped: as in JAX, the RoI head's losses reach the dense
 head through the RoIs (the grid points, the canonical-frame targets and
@@ -175,7 +176,84 @@ class VoxelRCNNHead(nn.Module):
         return self.head(feat, roi_valid)
 
 
-# the RoI heads the port has; the JAX package's others (PVRCNNHead,
-# PartA2FCHead, SECONDHead, PointRCNNHead) raise in the detector's setup,
-# naming the ROADMAP.md item that ports them
-ROI_HEADS = {"VoxelRCNNHead": VoxelRCNNHead}
+class PVRCNNHead(nn.Module):
+    """Keypoint grid pooling (reference pvrcnn_head.py): each RoI's G^3
+    grid points query the VoxelSetAbstraction keypoints of their sample
+    within ``pool_radius`` (the hash grid, ``nsample`` nearest, a scan cap
+    of nsample + 16); each sample's offset and keypoint features go
+    through a linear to 64, ``MaskedBatchNorm`` and ReLU, then a max over
+    the samples (``amax``: a tie's gradient split evenly); the flattened
+    grid feeds ``_FCHead``. ``kp_channels`` is the keypoint features'
+    width. The offsets carry the gradient into the RoIs."""
+
+    def __init__(self, kp_channels=128, grid_size=6, pool_radius=1.6, nsample=16,
+                 generator=None):
+        super().__init__()
+        self.grid_size, self.pool_radius, self.nsample = grid_size, pool_radius, nsample
+        self.linear0 = linear(3 + kp_channels, 64, generator=generator)
+        self.norm0 = MaskedBatchNorm(64)
+        self.head = _FCHead(64 * grid_size ** 3, generator=generator)
+
+    def forward(self, batch_dict, rois, roi_valid):
+        r, g, k = rois.shape[0], self.grid_size, self.nsample
+        grid_pts = roi_pool.roi_grid_points(rois, g).reshape(r * g ** 3, 3)
+        roi_batch = batch_dict.get("roi_batch")
+        if roi_batch is None:
+            roi_batch = torch.zeros(r, dtype=torch.int64, device=rois.device)
+        grid_b = torch.repeat_interleave(roi_batch, g ** 3)
+        kp_coords, kp_feats = batch_dict["point_coords"], batch_dict["point_features"]
+        q_f = torch.cat([grid_b[:, None].to(torch.float32), grid_pts.detach().to(torch.float32)],
+                        dim=1)
+        grid = hash_graph.build_hash_grid(kp_coords.detach().to(torch.float32), self.pool_radius)
+        idx, _, mask = hash_graph.radius_neighbors(grid, q_f, self.pool_radius, k,
+                                                   cell_cap=k + 16)
+        idx = torch.clamp(idx, 0, kp_coords.shape[0] - 1).reshape(-1)
+        m = mask.reshape(-1)
+        rel = (kp_coords.detach()[idx, 1:4].reshape(-1, k, 3).to(grid_pts.dtype)
+               - grid_pts[:, None, :])
+        gf = segment_ops.take_rows(kp_feats, idx)
+        x = torch.cat([rel.reshape(-1, 3), gf], dim=-1)
+        x = torch.where(m[:, None], x, x.new_zeros(()))
+        h = torch.relu(self.norm0(self.linear0(x), m)).reshape(r * g ** 3, k, -1)
+        h = torch.where(mask[..., None], h, torch.full_like(h, float("-inf")))
+        hmax = h.amax(dim=1)
+        hmax = torch.where(mask.any(1)[:, None], hmax, hmax.new_zeros(()))
+        return self.head(hmax.reshape(r, -1), roi_valid)
+
+
+class PartA2FCHead(nn.Module):
+    """RoI-aware pooling head (reference parta2_head.py, as the JAX module
+    has it): ``roiaware_pool3d`` with the average pool over the raw points'
+    features (``point_feat``, width ``point_feature_channels``) in a 12^3
+    grid per RoI (the JAX detector builds this head with its defaults, so
+    the config's GRID_SIZE is not read), flattened into ``_FCHead``. As in
+    JAX, every point of the batch pools into every RoI it falls in, whatever
+    its sample; the RoIs enter through discrete cells only, so the head's
+    losses give the dense head no gradient."""
+
+    def __init__(self, point_feature_channels=1, grid_size=12, generator=None):
+        super().__init__()
+        self.grid_size = grid_size
+        self.head = _FCHead(point_feature_channels * grid_size ** 3, generator=generator)
+
+    def forward(self, batch_dict, rois, roi_valid):
+        pts = batch_dict["point_bxyz"][:, 1:4]
+        feats = batch_dict.get("point_feat")
+        if feats is None:
+            feats = pts.new_zeros((pts.shape[0], 1))
+        pooled, _ = roi_pool.roiaware_pool3d(pts, feats, rois,
+                                             point_valid=batch_dict.get("point_valid"),
+                                             roi_valid=roi_valid, grid_size=self.grid_size,
+                                             pool="avg")
+        return self.head(pooled.reshape(rois.shape[0], -1), roi_valid)
+
+
+class SECONDHead(PartA2FCHead):
+    """The JAX package's SECONDHead: PartA2FCHead's RoI-aware pooling trunk
+    under another name (no config names it)."""
+
+
+# the RoI heads the port has; the JAX package's PointRCNNHead raises in the
+# detector's setup, naming the ROADMAP.md item that ports it
+ROI_HEADS = {"VoxelRCNNHead": VoxelRCNNHead, "PVRCNNHead": PVRCNNHead,
+             "PartA2FCHead": PartA2FCHead, "SECONDHead": SECONDHead}

@@ -1,10 +1,57 @@
-"""Brute-force kNN (counterpart of
-pcseqlearning_tpu.ops.sampling.knn_bruteforce) — the only sampling op the
-ground stage calls (TLS curvature over plane centers)."""
+"""Point sampling (counterpart of pcseqlearning_tpu.ops.sampling): farthest
+point sampling, and the brute-force kNN that the ground stage calls (TLS
+curvature over plane centers). Plain PyTorch, as the JAX module is XLA.
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def batched_farthest_point_sample(xyz, num_samples, valid=None):
+    """Farthest point sampling of B point sets at once: xyz [B, N, 3] (or
+    one [N, 3] table that every row of ``valid`` [B, N] masks) -> [B, S]
+    int64 indices.
+
+    Each row runs the JAX function's loop: the first valid point first;
+    then, S - 1 times, every valid point's distance to the picks so far is
+    the min of its old value and its squared distance to the last pick,
+    and the next pick is the first point of the largest (points that are
+    not valid hold -inf, which the min keeps, so they are never farthest
+    while a valid point is left; once every valid point is picked the
+    picks repeat). The squared distance is dx * dx + dy * dy + dz * dz in
+    that order, one rounding each (eager ops: no fused multiply-add on the
+    card), and ``torch.argmax`` takes the first of equal maxima, as
+    ``jnp.argmax``. The B loops run as one loop over a [B, N] table, with
+    no host read, eight launches an iteration."""
+    if xyz.dim() == 2:
+        xyz = xyz[None]
+    b = xyz.shape[0] if valid is None else valid.shape[0]
+    n = xyz.shape[1]
+    dev = xyz.device
+    if valid is None:
+        valid = torch.ones(b, n, dtype=torch.bool, device=dev)
+    table = xyz.expand(b, n, 3)
+    flat = table.reshape(b * n, 3)
+    inf = torch.tensor(float("inf"), dtype=xyz.dtype, device=dev)
+    dist = torch.where(valid, inf, -inf)
+    row_start = torch.arange(b, device=dev) * n
+    last = torch.argmax(valid.to(torch.uint8), dim=1)  # the first valid point
+    picks = [last]
+    for _ in range(1, num_samples):
+        sq = table - flat.index_select(0, row_start + last)[:, None, :]
+        sq = sq * sq
+        dist = torch.minimum(dist, sq[..., 0] + sq[..., 1] + sq[..., 2])
+        last = torch.argmax(dist, dim=1)
+        picks.append(last)
+    return torch.stack(picks, dim=1)
+
+
+def farthest_point_sample(xyz, num_samples, valid=None):
+    """Farthest point sampling of one set: xyz [N, 3], valid [N] -> [S]
+    int64 indices (see ``batched_farthest_point_sample``)."""
+    return batched_farthest_point_sample(
+        xyz, num_samples, None if valid is None else valid[None])[0]
 
 
 def knn_bruteforce(ref_xyz, query_xyz, k, ref_valid=None):

@@ -15,7 +15,8 @@ gather is a gather through the reverse rulebook, so
 
 and no scatter-add (and so no float atomic on the card) runs. For a
 submanifold conv the reverse of offset k is the mirrored offset K-1-k; for a
-strided conv it is the lookup in the opposite direction.
+strided or an inverse conv it is the lookup in the opposite direction.
+``sparse_maxpool3d`` gathers through ``segment_ops.take_rows``.
 
 Output coordinate tables are those of the JAX function row for row: the
 occupied output cells in lexicographic (b, z, y, x) order, truncated at
@@ -38,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import hash_graph
+from . import hash_graph, segment_ops
 
 DENSE_TABLE_CAP = 300_000_000
 
@@ -313,3 +314,79 @@ def to_dense(st: SparseTensor):
     lin = _linear(st.coords, st.spatial_shape)
     dense = grid_densify(B * D * H * W, st.features, st.valid, lin)
     return dense.reshape(B, D, H, W, st.features.shape[1])
+
+
+def sparse_inverse_conv3d(st: SparseTensor, target: SparseTensor, weights, bias=None,
+                          kernel_size=3, stride=2, padding=1,
+                          dense_table_cap=DENSE_TABLE_CAP):
+    """Inverse (transposed) sparse conv onto the known finer coords of
+    ``target`` (spconv SparseInverseConv3d, the UNet decoder): target voxel
+    f sums, over the offsets k, coarse voxel c with c * stride - pad + off_k
+    = f. The forward rulebook [K, T] resolves (f + pad - off_k) / stride
+    where it divides exactly (floor division and floor remainder, as JAX's
+    ``//`` and ``%`` on negative coords); the reverse rulebook [K, V] looks
+    c * stride - pad + off_k up among the targets, so the backward gathers
+    too. Output: ``target``'s coords and mask."""
+    ks, stride, padding = _triple(kernel_size), _triple(stride), _triple(padding)
+    dev = st.coords.device
+    offs = kernel_offsets(ks, dev)
+    k = offs.shape[0]
+    stride_a = torch.tensor(stride, device=dev)
+    pad_a = torch.tensor(padding, device=dev)
+    feats = _mask_features(st.features, st.valid)
+    v, t_cap = feats.shape[0], target.features.shape[0]
+
+    zyx = target.coords[None, :, 1:4].long() + pad_a - offs[:, None, :]  # [K, T, 3]
+    div_ok = (torch.remainder(zyx, stride_a) == 0).all(-1)
+    coarse = torch.div(zyx, stride_a, rounding_mode="floor")
+    b = target.coords[None, :, 0:1].long().expand(k, t_cap, 1)
+    q = torch.cat([b, coarse], dim=-1).reshape(k * t_cap, 4)
+    qv = (target.valid[None, :] & div_ok).reshape(-1)
+    idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, t_cap)
+    idx_all = torch.where(div_ok, idx_all, torch.full_like(idx_all, -1))
+
+    rzyx = st.coords[None, :, 1:4].long() * stride_a - pad_a + offs[:, None, :]  # [K, V, 3]
+    rb = st.coords[None, :, 0:1].long().expand(k, v, 1)
+    rq = torch.cat([rb, rzyx], dim=-1).reshape(k * v, 4)
+    rqv = st.valid[None, :].expand(k, v).reshape(-1)
+    idx_rev = _lookup_coords(target, rq, rqv, dense_table_cap).reshape(k, v)
+
+    out = rulebook_mm(feats, idx_all, idx_rev, weights)
+    if bias is not None:
+        out = out + bias[None, :]
+    return SparseTensor(_mask_features(out, target.valid), target.coords, target.valid,
+                        target.spatial_shape, target.batch_size)
+
+
+def sparse_maxpool3d(st: SparseTensor, kernel_size=3, stride=2, padding=1, out_cap=None,
+                     dense_table_cap=DENSE_TABLE_CAP):
+    """Sparse max pooling (spconv indice_maxpool): the output coords of a
+    strided conv, each the max over the inputs under its K offsets (0 where
+    none). The max is taken offset by offset, pairwise, as the JAX
+    function's scan of ``jnp.maximum`` does, so a tie halves the gradient
+    at each step (one ``amax`` over the K offsets would split it evenly
+    instead)."""
+    ks, stride, padding = _triple(kernel_size), _triple(stride), _triple(padding)
+    v = st.features.shape[0]
+    out_cap = out_cap or v
+    out_coords, out_valid, out_shape = _downsample_coords(st, ks, stride, padding, out_cap,
+                                                          dense_table_cap)
+    dev = st.coords.device
+    offs = kernel_offsets(ks, dev)
+    k = offs.shape[0]
+    feats = _mask_features(st.features, st.valid)
+    zyx = (out_coords[None, :, 1:4].long() * torch.tensor(stride, device=dev)
+           - torch.tensor(padding, device=dev) + offs[:, None, :])
+    b = out_coords[None, :, 0:1].long().expand(k, out_cap, 1)
+    q = torch.cat([b, zyx], dim=-1).reshape(k * out_cap, 4)
+    qv = out_valid[None, :].expand(k, out_cap).reshape(-1)
+    idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, out_cap)
+    neg = torch.full((out_cap, feats.shape[1]), float("-inf"), dtype=feats.dtype, device=dev)
+    out = neg
+    for kk in range(k):
+        idx = idx_all[kk]
+        g = segment_ops.take_rows(feats, torch.clamp(idx, 0, v - 1))
+        out = torch.maximum(out, torch.where((idx >= 0)[:, None], g, neg))
+    out = torch.where(torch.isfinite(out), out, torch.zeros((), dtype=out.dtype, device=dev))
+    return SparseTensor(_mask_features(out, out_valid), out_coords, out_valid, out_shape,
+                        st.batch_size)

@@ -307,7 +307,7 @@ def test_build_network_centerpoint_yaml(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         build_network(cfg.MODEL, runtime)  # the card by default
-    for name in ("PartA2Net", "PVRCNN"):  # detectors the port does not have yet
+    for name in ("PointRCNN", "CaDDN"):  # detectors the port does not have yet
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_network(dict(cfg.MODEL, NAME=name), runtime, device="cpu")
     bad = EDict(dict(cfg.MODEL, DENSE_HEAD={"NAME": "PointHeadBox"}))

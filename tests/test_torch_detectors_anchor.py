@@ -228,7 +228,8 @@ def test_converter_takes_every_flax_leaf_once(jax_run):
 # the YAML configs through build_network
 # ---------------------------------------------------------------------------
 
-PORTED = ("second", "second_iou", "pointpillar", "voxel_rcnn")
+PORTED = ("second", "second_iou", "pointpillar", "voxel_rcnn", "part_a2", "pv_rcnn",
+          "pv_rcnn_plusplus", "pv_rcnn_plusplus_cotrain")
 TINY = dict(data_cfg={"POINT_CLOUD_RANGE": [-6.4, -6.4, -1.0, 6.4, 6.4, 2.2],
                       "VOXEL_SIZE": [0.4, 0.4, 0.2]}, voxel_cap=1024)
 
@@ -276,4 +277,6 @@ def test_other_detectors_raise_naming_their_item(name):
 
 
 def test_seven_detectors_remain():
-    assert len(OTHERS) == 7
+    """Three configs remain unported: pointrcnn, sst_centerpoint and caddn
+    (queue 1 items 4.3-4.5)."""
+    assert OTHERS == ["caddn", "pointrcnn", "sst_centerpoint"]
