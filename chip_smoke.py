@@ -101,7 +101,7 @@ host cost.
              onecycle_centerpoint.yaml unchanged but for the data path, the
              output root, --batch_size 2 (--detector-batch), the epochs and
              the tags, over scene.make_scene sequences written as Waymo npy
-             sequences (train: 8 batches of frames x 160,000 points, seed 0;
+             sequences (train: 4 batches of frames x 160,000 points, seed 0;
              val: 4 frames, seed 1; every GT box a Vehicle), full widths on
              the +-74.88 m grid:
              (a) two epochs (8 steps each) with --fix_random_seed: mean losses
@@ -159,8 +159,8 @@ host cost.
                  memory and kept boxes
              (c) the training CLI with second.yaml and voxel_rcnn.yaml
                  (detection_1sweep.yaml, adam_onecycle.yaml) for one epoch
-                 over phase 8's train frames, and the test CLI on a
-                 precise-BN copy of each checkpoint
+                 over 8 train frames of phase 8's scene, and the test CLI
+                 on a precise-BN copy of each checkpoint
              Every line starts "# anchor detectors [<card>, <power limit>]";
              no kernel of the port runs (launches 0 / 0 / 0).
  11. pv      PartA2 and the PV-RCNN family (part_a2.yaml, pv_rcnn.yaml,
@@ -171,18 +171,46 @@ host cost.
                  cell: float64 strictly (losses 1e-8, gradients 1e-3 of max,
                  FPS picks equal, predict), float32 within twice JAX's own
                  float32 error (see pv_detectors_phase)
-             (b) bench_detector's cell: PartA2 and PV-RCNN 8 timed steps,
+             (b) bench_detector's cell: PartA2 and PV-RCNN 4 timed steps,
                  the first two repeated bit for bit; PV-RCNN++ and the
                  co-train 2; FPS, PFE and RoI-aware pooling seconds
              (c) the train and test CLIs with part_a2.yaml and pv_rcnn.yaml
              Every line starts "# pv detectors [<card>, <power limit>]"; no
              kernel of the port runs (launches 0 / 0 / 0).
+ 12. last    PointRCNN, SST-CenterPoint and CaDDN (pointrcnn.yaml,
+             sst_centerpoint.yaml, caddn.yaml, each MODEL at full widths;
+             CaDDN on camera_detector_batch's images and side camera):
+             (a) one train step on the card against the CPU at +-6.4 m (see
+                 last_detectors_phase): float64 strictly (losses 1e-8,
+                 gradients 1e-3 of max, batch statistics, FPS picks and
+                 window assignments equal, predict), float32 within twice
+                 JAX's own float32 error (``FP32_LAST_LIMITS``; PointRCNN's
+                 float32 step with the float64 step's FPS picks)
+             (b) full width, 4 timed steps each, the first two repeated bit
+                 for bit: PointRCNN and SST at bench_detector's cell
+                 (PointRCNN on POINT_CAP rows a sample, SST at its
+                 VOXEL_CAP), CaDDN on 2 x 1,280 x 1,920 images at the
+                 Waymo grid with the CLI's 16,384-voxel cap; steps/s, peak
+                 memory, the loss trend; PointRCNN's FPS seconds a forward,
+                 SST's share of pillars each block's window cap drops,
+                 CaDDN's share of kept voxels inside the frustum (> 0)
+             (c) the train and test CLIs with pointrcnn.yaml and
+                 sst_centerpoint.yaml
+             Every line starts "# last detectors [<card>, <power limit>]";
+             no kernel of the port runs (launches 0 / 0 / 0).
+             Phases 10(a), 11(a) and 12(a), mostly the CPU's float64 steps,
+             run in a second process (``chip_smoke.py --card-vs-cpu``, on
+             the same card, two CPU threads left) beside 10-12 (b) and (c);
+             its output is printed after 12(c), and its failure fails the
+             run. The times of (b) and (c) are taken beside it. The two
+             take turns on the card (``card_alone``): the second process's
+             card steps, and all of phase 12 (b) and (c), run alone.
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
     python3 chip_smoke.py --detector-batch 8
 
-runs phase 8 at batch 8 (64 train frames) instead of 2 (16 frames).
+runs phase 8 at batch 8 (32 train frames) instead of 2 (8 frames).
 
     python3 chip_smoke.py --cpu-rehearsal
 
@@ -193,10 +221,15 @@ itself without a card.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
+import fcntl
 import json
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -228,6 +261,41 @@ def log(msg):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# Phases 10-12 run in two processes on one card (``detector_phases``). Each
+# holds the lock on this file while it alone may use the card: the second
+# process for its card steps, the first for phase 12's (b) and (c), whose
+# full-width steps reserve up to 77 GB of the card's 80. None where one
+# process runs them all.
+CARD_LOCK = None
+
+
+@contextlib.contextmanager
+def card_alone(label):
+    """The block with ``CARD_LOCK`` held, the card's cache given back at its
+    end; logs the wait, the time held and the peak memory reserved."""
+    import torch
+
+    if CARD_LOCK is None:
+        yield
+        return
+    on_card = torch.cuda.is_available()
+    fd = os.open(CARD_LOCK, os.O_RDWR | os.O_CREAT)
+    t0 = time.perf_counter()
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        t1 = time.perf_counter()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        yield
+        reserved = torch.cuda.max_memory_reserved() / 1e9 if on_card else 0.0
+        log(f"# card turn {label}: waited {t1 - t0:.1f} s, held {time.perf_counter() - t1:.1f} "
+            f"s, peak reserved {reserved:.2f} GB")
+    finally:
+        if on_card:
+            torch.cuda.empty_cache()
+        os.close(fd)
 
 
 def _copy(x):
@@ -1242,7 +1310,7 @@ def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
     detection_1sweep.yaml and onecycle_centerpoint.yaml unchanged but for
     the data path, the output root, --batch_size (2, or --detector-batch),
     the epochs and the tags (the CPU rehearsal also shrinks the model and
-    the grid), over 8 batches of train frames an epoch. (a) two epochs
+    the grid), over 4 batches of train frames an epoch. (a) two epochs
     with --fix_random_seed, the voxels of each sample counted (kept by
     VOXEL_CAP, and occupied): finite losses, checkpoint_epoch_1 and _2,
     parameters moved from their initial values, the first update at
@@ -1897,9 +1965,9 @@ class CallMeter:
     """Wraps ``getattr(mod, name)`` while installed: its calls, their summed
     seconds (synchronized on the card) and the largest memory one call
     takes above what was allocated when it started; ``record``, if given,
-    sees each call's arguments after it."""
+    sees each call's arguments after it, and ``result`` its result."""
 
-    def __init__(self, mod, name, dev, record=None):
+    def __init__(self, mod, name, dev, record=None, result=None):
         import torch
 
         self.mod, self.name, self.orig = mod, name, getattr(mod, name)
@@ -1920,6 +1988,8 @@ class CallMeter:
             self.calls += 1
             if record is not None:
                 record(*args, **kwargs)
+            if result is not None:
+                result(out)
             return out
 
         setattr(mod, name, timed)
@@ -1959,12 +2029,14 @@ def set_distance(a, b):
     return float(max(d.amin(1).max(), d.amin(0).max()))
 
 
-def near_threshold_pairs(cand, valid, thr, eps=1e-5):
+def near_threshold_pairs(dev, cand, valid, thr, eps=1e-5):
     """Pairs of valid candidates (each counted once) whose IoU lies within
-    ``eps`` of ``thr``: the decisions a rounding can flip."""
+    ``eps`` of ``thr``: the decisions a rounding can flip. The IoUs are
+    computed on ``dev`` (the card: a CPU takes tens of seconds for the
+    4,096 candidates of one NMS call)."""
     from pcseqlearning_tpu_torch.ops.boxes import iou_bev_above
 
-    b = cand[valid]
+    b = cand[valid].to(dev)
     band = iou_bev_above(b, thr - eps) & ~iou_bev_above(b, thr + eps)
     return int((band | band.T).triu(1).sum())
 
@@ -1985,6 +2057,15 @@ def predict_gaps(card, cpu):
             score_err = max(score_err, float((cs[b][both].sort().values
                                               - ps[b][both].sort().values).abs().max()))
     return torch.equal(cv, pv), box_err, score_err
+
+
+def _has_key(cfg, dotted):
+    """Whether the dotted path names an entry of ``cfg``."""
+    for k in dotted.split("."):
+        if not hasattr(cfg, "keys") or k not in cfg:
+            return False
+        cfg = cfg[k]
+    return True
 
 
 def detector_cli_runs(repo, dev, tag, models, cli, rehearse, extra_tag, extra=None):
@@ -2008,10 +2089,13 @@ def detector_cli_runs(repo, dev, tag, models, cli, rehearse, extra_tag, extra=No
     from pcseqlearning_tpu_torch.models import build_network
     from pcseqlearning_tpu_torch.scene import detector_argv, write_detector_sequences
 
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
     extra = extra or {}
     errs = []
     frames, points, val_frames, batch_size = cli
-    shrink = [] if not rehearse else [
+    all_shrink = [] if not rehearse else [
         "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
         "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
         "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
@@ -2026,6 +2110,9 @@ def detector_cli_runs(repo, dev, tag, models, cli, rehearse, extra_tag, extra=No
             paths = (f"tools/cfgs/waymo_models/{model}.yaml",
                      "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
                      "tools/cfgs/optimizers/adam_onecycle.yaml")
+            own = cfg_from_yaml_file(str(repo / paths[0]), EDict())
+            shrink = [x for k, v in zip(all_shrink[::2], all_shrink[1::2])
+                      if not k.startswith("MODEL.") or _has_key(own, k) for x in (k, v)]
             t0 = time.perf_counter()
             res = train.main(detector_argv(repo, train_path, root, dev.type, "--batch_size",
                                            str(batch_size), "--epochs", "1", "--fix_random_seed",
@@ -2076,7 +2163,7 @@ def detector_cli_runs(repo, dev, tag, models, cli, rehearse, extra_tag, extra=No
     return errs
 
 
-def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
+def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abc"):
     """Phase 10: SECOND, SECOND-IoU, PointPillar and Voxel R-CNN as
     second.yaml, second_iou.yaml, pointpillar.yaml and voxel_rcnn.yaml's
     MODELs build them (full widths), TF32 off and cuDNN deterministic.
@@ -2105,8 +2192,8 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     seconds and calls, the largest memory one NMS call takes, kept boxes.
     (c) The CLIs: python -m pcseqlearning_tpu_torch.train with second.yaml
     and voxel_rcnn.yaml, detection_1sweep.yaml and adam_onecycle.yaml, one
-    epoch at batch 2 with --fix_random_seed over phase 8's train frames:
-    losses finite, the checkpoint written; then the test CLI on a
+    epoch at batch 2 with --fix_random_seed over 8 train frames of phase 8's
+    scene: losses finite, the checkpoint written; then the test CLI on a
     precise-BN copy of each checkpoint: every predicted box finite, every
     Vehicle AP/APH value finite. No kernel of the port runs here (all three
     launch counts 0). Every line names the card and its power limit.
@@ -2146,7 +2233,7 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
 
     # ---- (a) card against CPU
     batch = bench_detector_batch(2, a_points, a_extent - 0.5, seed=1)
-    for model, key in ANCHOR_MODELS:
+    for model, key in ANCHOR_MODELS if "a" in parts else ():
         runtime = runtime_of(model, a_extent, a_cap)
 
         def one_step(device, dtype):
@@ -2180,9 +2267,12 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
                            nms=meter.inputs)
             return res
 
-        t0 = time.perf_counter()
-        card, card64 = one_step(dev, torch.float32), one_step(dev, torch.float64)
-        t_card = time.perf_counter() - t0
+        with card_alone(f"10(a) {model}"):
+            t0 = time.perf_counter()
+            card, card64 = one_step(dev, torch.float32), one_step(dev, torch.float64)
+            t_card = time.perf_counter() - t0
+        if dev.type == "cuda":  # the card's cache back before the CPU's steps
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cpu, cpu64 = (one_step(torch.device("cpu"), torch.float32),
                       one_step(torch.device("cpu"), torch.float64))
@@ -2217,7 +2307,7 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
         rois64, rois32 = ((max(set_distance(a, b) for a, b in zip(x["rois"], y["rois"]))
                            if two_stage else None) for x, y in ((card64, cpu64), (card, cpu)))
         valid_eq, box_err, score_err = predict_gaps(card64["pred"], cpu64["pred"])
-        near = [near_threshold_pairs(*c) for c in cpu64["nms"]]
+        near = [near_threshold_pairs(dev, *c) for c in cpu64["nms"]]
         first_key = "center_loss" if two_stage else key
         fp32_grads = {first_key: dict(card=max(first32.values()), cpu=max(cpu_first32.values()),
                                       limit=FP32_GRAD_LIMIT[first_key], worst_card=worst(first32))}
@@ -2275,7 +2365,7 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
             torch.cuda.empty_cache()
 
     # ---- (b) bench_detector's cell, full width
-    for model, key in ANCHOR_MODELS:
+    for model, key in ANCHOR_MODELS if "b" in parts else ():
         extent = b_extent
         if model == "pointpillar":  # the largest range whose grid a multiple of 8 divides
             extent = round((round(2 * b_extent / 0.1) // 8) * 8 * 0.1 / 2, 4)
@@ -2352,12 +2442,14 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
             errs.append(f"{model} (b): two steps from the same seed differ in {differing[:5]}")
 
     # ---- (c) the CLIs
-    errs += detector_cli_runs(repo, dev, tag, (("second", "rpn_loss"),
-                                               ("voxel_rcnn", "total_loss")), cli, rehearse, "p10")
+    if "c" in parts:
+        errs += detector_cli_runs(repo, dev, tag, (("second", "rpn_loss"),
+                                                   ("voxel_rcnn", "total_loss")), cli, rehearse,
+                                  "p10")
     launches = {name: fn.launches for name, fn in kernels.items()}
-    log(f"{tag}: kernel launches in phase 10 {json.dumps(launches)}")
+    log(f"{tag}: kernel launches in phase 10({parts}) {json.dumps(launches)}")
     if any(launches.values()):
-        errs.append(f"phase 10 launched a kernel of the extraction path: {launches}")
+        errs.append(f"phase 10({parts}) launched a kernel of the extraction path: {launches}")
     return errs
 
 
@@ -2404,7 +2496,7 @@ def first_divergence(a, b):
     return None if not len(diff) else [int(v) for v in diff[0]]
 
 
-def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
+def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abc"):
     """Phase 11: PartA2 and the PV-RCNN family as part_a2.yaml, pv_rcnn.yaml,
     pv_rcnn_plusplus.yaml and pv_rcnn_plusplus_cotrain.yaml's MODELs build
     them (full widths: 4,096 keypoints, 128 RoIs a sample, UNetV2's (16,
@@ -2423,7 +2515,7 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     tests/test_torch_detector_precision.py holds the port's CPU; JAX's
     errors in ``FP32_PV_LIMITS``); the first FPS pick where the card's
     float32 run and the CPU's float32 FPS diverge is printed. (b) bench_detector's
-    cell: PartA2 and PV-RCNN a FLOP-counted step and 8 timed steps (losses
+    cell: PartA2 and PV-RCNN a FLOP-counted step and 4 timed steps (losses
     finite and falling), the first two repeated bit for bit; PV-RCNN++ and
     the co-train 2 steps; steps/s, peak memory, MFU, then one step more with FPS, the
     PFE and RoI-aware pooling timed (seconds, and the pooling's memory), and
@@ -2470,7 +2562,7 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
 
     # ---- (a) card against CPU
     batch = bench_detector_batch(2, a_points, a_extent - 0.5, seed=1)
-    for model in PV_MODELS:
+    for model in PV_MODELS if "a" in parts else ():
         runtime = runtime_of(model, a_extent, a_cap)
 
         def one_step(device, dtype):
@@ -2497,9 +2589,12 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
                            nms=meter.inputs)
             return res
 
-        t0 = time.perf_counter()
-        card, card64 = one_step(dev, torch.float32), one_step(dev, torch.float64)
-        t_card = time.perf_counter() - t0
+        with card_alone(f"11(a) {model}"):
+            t0 = time.perf_counter()
+            card, card64 = one_step(dev, torch.float32), one_step(dev, torch.float64)
+            t_card = time.perf_counter() - t0
+        if dev.type == "cuda":  # the card's cache back before the CPU's steps
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         cpu64 = one_step(torch.device("cpu"), torch.float64)
         fps = cpu64["picks"] is not None
@@ -2536,7 +2631,7 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
         rois64 = max(set_distance(a, b) for a, b in zip(card64["rois"], cpu64["rois"]))
         rois32 = max(set_distance(a, b) for a, b in zip(card["rois"], cpu64["rois"]))
         valid_eq, box_err, score_err = predict_gaps(card64["pred"], cpu64["pred"])
-        near = [near_threshold_pairs(*c) for c in cpu64["nms"]]
+        near = [near_threshold_pairs(dev, *c) for c in cpu64["nms"]]
         picks_eq64 = fps and torch.equal(card64["picks"], cpu64["picks"])
         loss_limit, grad_limit = (2 * x for x in FP32_PV_LIMITS[model])
         raised = None
@@ -2596,7 +2691,7 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
             torch.cuda.empty_cache()
 
     # ---- (b) bench_detector's cell, full width
-    for model in PV_MODELS:
+    for model in PV_MODELS if "b" in parts else ():
         runtime = runtime_of(model, b_extent, b_cap)
         dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in bench_detector_batch(
             b_batch, b_points, 70.0 if b_extent > 70 else b_extent - 0.5).items()}
@@ -2696,15 +2791,488 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
             errs.append(f"{model} (b): predict gave non-finite boxes")
 
     # ---- (c) the CLIs
-    extra = {"pv_rcnn": ["MODEL.PFE.NUM_KEYPOINTS", "256"]} if rehearse else None
-    errs += detector_cli_runs(repo, dev, tag, (("part_a2", "total_loss"),
-                                               ("pv_rcnn", "total_loss")), cli, rehearse, "p11",
-                              extra)
+    if "c" in parts:
+        extra = {"pv_rcnn": ["MODEL.PFE.NUM_KEYPOINTS", "256"]} if rehearse else None
+        errs += detector_cli_runs(repo, dev, tag, (("part_a2", "total_loss"),
+                                                   ("pv_rcnn", "total_loss")), cli, rehearse,
+                                  "p11", extra)
     launches = {name: fn.launches for name, fn in kernels.items()}
-    log(f"{tag}: kernel launches in phase 11 {json.dumps(launches)}")
+    log(f"{tag}: kernel launches in phase 11({parts}) {json.dumps(launches)}")
     if any(launches.values()):
-        errs.append(f"phase 11 launched a kernel of the extraction path: {launches}")
+        errs.append(f"phase 11({parts}) launched a kernel of the extraction path: {launches}")
     return errs
+
+
+LAST_MODELS = ("pointrcnn", "sst_centerpoint", "caddn")
+LAST_LOSS = {"pointrcnn": "total_loss", "sst_centerpoint": "center_loss", "caddn": "center_loss"}
+# JAX's own float32 errors against float64 at phase 12(a)'s cells (printed by
+# tests/test_torch_detector_precision.py -k last_three), by the loss
+# differentiated: (the losses' largest relative error, the gradients'
+# largest error of a tensor's max |g|). PointRCNN's point_loss (its first
+# stage) from the port's seeded weights with the float64 run's FPS picks,
+# as the card's float32 step runs (the "pointrcnn-fixed-picks-point_loss"
+# case); its total_loss with JAX's own picks (the "pointrcnn" case), as its
+# RoI stage's choices flip in float32. Phase 12(a) holds the card's float32
+# losses to twice the first-listed loss's error (at least 1e-4) and its
+# gradients to twice each gradient error, at least FP32_GRAD_LIMIT
+# ["center_loss"], JAX's own float32 error on CenterPoint's BEV backbone and
+# head (phase 10(a)'s bound on Voxel R-CNN's first stage), as the card's
+# float32 lies further from float64 than JAX's on a CPU: SST's cuDNN BEV
+# convolutions at +-9.6 m 4.2e-2 of max (JAX's 3.0e-3), PointRCNN's
+# point_loss 1.67e-2 with the picks fixed (JAX's 5.2e-3), on an H100; a
+# zeroed or sign-flipped gradient lies 1 or 2 of max away
+FP32_LAST_LIMITS = {"pointrcnn": {"point_loss": (2.745e-7, 5.175e-3),
+                                  "total_loss": (4.306e-3, 2.131)},
+                    "sst_centerpoint": {"center_loss": (1.467e-7, 3.393e-2)},
+                    "caddn": {"center_loss": (4.756e-6, 7.436e-2)}}
+
+
+def last_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abc"):
+    """Phase 12: PointRCNN, SST-CenterPoint and CaDDN as pointrcnn.yaml,
+    sst_centerpoint.yaml and caddn.yaml's MODELs build them (full widths:
+    PointNet2MSG's 4,096 / 1,024 / 256 / 64 centres and 100 RoIs a sample
+    of 128 points; SST's 6 blocks of 128 over 4,096 x 144 windows; ImageVFE
+    with 16 LID bins), TF32 off and cuDNN deterministic. CaDDN reads
+    ``scene.camera_detector_batch``'s images and side camera, placed past
+    the rows its voxel table keeps (the JAX package has no dataset with
+    images), and trains through its own step (the train step's batch layout
+    carries no images).
+    (a) Card against CPU, one train step each, in float64 then predict, and
+    the card's float32 step, at +-6.4 m and 2 x 2,500 points (CaDDN with 2 x
+    320 x 480 images), where tests/test_torch_detector_precision.py can
+    measure JAX's own float32 error on a CPU (JAX's attention tables and its
+    sampler over every voxel of the dense grid grow with the range) and the
+    CPU's float64 steps stay short (at phase 7(a)'s cell they took 19-57 s a
+    model). In float64: losses within
+    1e-8 relative, every gradient within 1e-3 of its tensor's max, batch
+    statistics 1e-5 of max(1, |v|), PointRCNN's FPS picks and SST's window
+    assignments equal, predict's valid masks equal, boxes within 1e-4 as
+    sets and sorted scores within 1e-5. The card's float32 step, with the
+    float64 step's FPS picks, against the CPU's float64: losses and
+    gradients within twice JAX's own float32 error (``FP32_LAST_LIMITS``:
+    PointRCNN's point_loss gradients and its losses with the same picks,
+    its total_loss gradients with JAX's own), the gradients within at least
+    JAX's own float32 error on CenterPoint's BEV backbone and head,
+    8.55e-2. (b) Full
+    width, 4 timed steps each (losses finite and falling) after a first
+    step, then predict (every decoded row's box finite, kept or not), then
+    the first two steps repeated bit
+    for bit from the same seed, the first of them metered: PointRCNN and SST at bench_detector's cell, PointRCNN on the
+    first POINT_CAP (16,384) points of each sample, SST at its VOXEL_CAP
+    (120,000); CaDDN at the Waymo grid with the CLI's 16,384-voxel cap on 2
+    x 1,280 x 1,920 images. Prints steps/s, peak memory and the losses;
+    PointRCNN's FPS seconds a forward; SST's share of the valid pillars that
+    each block's window cap drops; CaDDN's share of kept voxels inside the
+    frustum (a nonzero sampled feature), which must not be 0. (c) The train
+    and test CLIs with pointrcnn.yaml and sst_centerpoint.yaml
+    (``detector_cli_runs``). No kernel of the port runs here (all three
+    launch counts 0). Every line names the card and its power limit.
+    Returns failures."""
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.ops import sampling
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, init_train_state,
+                                                             make_train_step)
+    from pcseqlearning_tpu_torch.scene import (bench_detector_batch, caddn_camera_y,
+                                               camera_detector_batch)
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    tag = f"# last detectors [{gpu_line}]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cells_a, cells_b, b_steps, cli = sizes
+    cfgs = {m: cfg_from_yaml_file(str(repo / f"tools/cfgs/waymo_models/{m}.yaml"), EDict())
+            for m in LAST_MODELS}
+    errs = []
+    for fn in kernels.values():
+        fn.launches = 0
+
+    def runtime_of(model, extent, cap):
+        return dict(data_cfg={"POINT_CLOUD_RANGE": [-extent, -extent, -2.0, extent, extent, 4.0],
+                              "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                    class_names=list(cfgs[model].CLASS_NAMES), voxel_cap=cap)
+
+    def batch_of(model, cell, seed):
+        """The dense batch of ``cell`` = (extent, points, batch, cap, image
+        hw, point cap) for ``model``."""
+        extent, points, batch_size, cap, image_hw, point_cap = cell
+        inner = 70.0 if extent > 70 else extent - 0.5
+        if model == "caddn":
+            batch = camera_detector_batch(batch_size, points, inner, image_hw,
+                                          caddn_camera_y(extent, 0.1, cap), seed=seed)
+        else:
+            batch = bench_detector_batch(batch_size, points, inner, seed=seed)
+        if point_cap:
+            for k in ("points", "feats", "valid"):
+                batch[k] = np.ascontiguousarray(batch[k][:, :point_cap])
+        return batch
+
+    def flat_of(batch, device):
+        flat = _flatten_local(**{k: torch.as_tensor(batch[k]).to(device)
+                                 for k in ("points", "feats", "valid", "gt_boxes")})
+        flat.update({k: torch.as_tensor(batch[k]).to(device)
+                     for k in ("images", "calib_K", "calib_T") if k in batch})
+        return flat
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    def worst(errs, k=3):
+        return sorted(errs.items(), key=lambda kv: -kv[1])[:k]
+
+    # ---- (a) card against CPU
+    for model in (m for m in LAST_MODELS if "a" in parts and m in cells_a):
+        cell = cells_a[model]
+        runtime = runtime_of(model, cell[0], cell[3])
+        batch = batch_of(model, cell, seed=1)
+        key = LAST_LOSS[model]
+
+        def one_step(device, dtype, fixed=None):
+            """One training forward and backward from the seeded weights
+            (the network in ``dtype``), then, in float64, predict. ``fixed``
+            maps a number of FPS picks to the picks every FPS call that asks
+            for that many returns (each call's own picks are still made, and
+            whether they equal those is kept)."""
+            net = build_network(cfgs[model].MODEL, runtime, device=device).to(dtype)
+            net.train()
+            picks, own_equal, orig = [], [], sampling.farthest_point_sample
+            if fixed is not None:
+                def fixed_fps(xyz, num_samples, valid=None):
+                    own = orig(xyz, num_samples, valid=valid)
+                    own_equal.append(torch.equal(own.cpu(), fixed[num_samples]))
+                    return fixed[num_samples].to(own.device)
+                sampling.farthest_point_sample = fixed_fps
+            fps = CallMeter(sampling, "farthest_point_sample", torch.device(device),
+                            result=lambda idx: picks.append(idx.detach().cpu()))
+            try:
+                bd = net(flat_of(batch, device))
+            finally:
+                fps.restore()
+                sampling.farthest_point_sample = orig
+            params = dict(net.named_parameters())
+            by_loss = {}
+            for k in FP32_LAST_LIMITS[model]:  # a first stage's loss, then ``key``'s
+                if k != key:
+                    gs = torch.autograd.grad(bd["losses"][k], list(params.values()),
+                                             retain_graph=True, allow_unused=True)
+                    by_loss[k] = {n: g.double().cpu() for n, g in zip(params, gs)
+                                  if g is not None}
+            bd["losses"][key].backward()
+            by_loss[key] = {n: p.grad.double().cpu() for n, p in params.items()
+                            if p.grad is not None}
+            res = dict(losses={k: float(v.detach()) for k, v in bd["losses"].items()},
+                       grads=by_loss[key], by_loss=by_loss,
+                       stats={n: b.double().cpu() for n, b in net.named_buffers()},
+                       picks=picks, own_picks_equal=own_equal,
+                       rois=bd["rois"].detach().double().cpu() if "rois" in bd else None,
+                       windows=[[t.cpu() for t in mp] for mp in bd.get("window_mappings", [])])
+            if model == "caddn":
+                vf = bd["voxel_features"][bd["voxel_valid"]]
+                res["frustum_share"] = float((vf != 0).any(1).double().mean())
+            if dtype == torch.float64:
+                meter = NmsMeter(torch.device(device))
+                try:
+                    _, boxes, scores, _, valid = net.predict(flat_of(batch, device))
+                finally:
+                    meter.restore()
+                res.update(pred=(boxes.double().cpu(), scores.double().cpu(), valid.cpu()),
+                           nms=meter.inputs)
+            return res
+
+        # the float32 step takes the float64 step's FPS picks: PointRCNN's
+        # float32 FPS picks otherwise (on the 1e4-shifted samples), and every
+        # tensor downstream then differs
+        with card_alone(f"12(a) {model}"):
+            t0 = time.perf_counter()
+            card64 = one_step(dev, torch.float64)
+            card = one_step(dev, torch.float32, {len(x): x for x in card64["picks"]} or None)
+            t_card = time.perf_counter() - t0
+        if dev.type == "cuda":  # the card's cache back before the CPU's steps
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu64 = one_step(torch.device("cpu"), torch.float64)
+        t_cpu = time.perf_counter() - t0
+
+        def grad_errs(a, b):
+            """Each gradient's error over its tensor's max |g|; an attention
+            key bias, whose gradient is zero in exact arithmetic, over its
+            block's query-bias max (as tests/test_torch_sst.py holds it)."""
+            def scale(n):
+                g = b[n.replace("attn.key.bias", "attn.query.bias")]
+                return max(float(g.abs().max()), 1e-30)
+            return {n: float((a[n] - g).abs().max()) / scale(n) for n, g in b.items()}
+
+        def stat_errs(a, b):
+            return {n: float((a["stats"][n] - v).abs().max() / max(1.0, float(v.abs().max())))
+                    for n, v in b["stats"].items()}
+
+        loss32 = max(rel(card["losses"][k], v) for k, v in cpu64["losses"].items())
+        loss64 = max(rel(card64["losses"][k], v) for k, v in cpu64["losses"].items())
+        same_grads = set(card64["grads"]) == set(cpu64["grads"]) == set(card["grads"])
+        grad64 = max(grad_errs(card64["grads"], cpu64["grads"]).values())
+        stat64 = max(stat_errs(card64, cpu64).values())
+        valid_eq, box_err, score_err = predict_gaps(card64["pred"], cpu64["pred"])
+        near = [near_threshold_pairs(dev, *c) for c in cpu64["nms"]]
+        picks_eq = (len(card64["picks"]) == len(cpu64["picks"])
+                    and all(torch.equal(a, b) for a, b in zip(card64["picks"], cpu64["picks"])))
+        windows_eq = (len(card64["windows"]) == len(cpu64["windows"])
+                      and all(torch.equal(a, b) for ma, mb in zip(card64["windows"],
+                                                                   cpu64["windows"])
+                              for a, b in zip(ma, mb)))
+        loss_limit = max(2 * next(iter(FP32_LAST_LIMITS[model].values()))[0], 1e-4)
+        fp32_grads = {}
+        for k, (_, jax_grad) in FP32_LAST_LIMITS[model].items():
+            g32 = grad_errs(card["by_loss"][k], cpu64["by_loss"][k])
+            fp32_grads[k] = dict(card=max(g32.values()), worst_card=worst(g32),
+                                 limit=max(2 * jax_grad, FP32_GRAD_LIMIT["center_loss"]))
+        rec = dict(model=model, range_m=cell[0], points=[cell[2], cell[1]], voxel_cap=cell[3],
+                   images=cell[4], losses_card=card["losses"],
+                   fp32_loss_rel_err_against_cpu_fp64=dict(card=loss32, limit=loss_limit),
+                   fp32_batch_stats_err_of_max_1=worst(stat_errs(card, cpu64)),
+                   fp64=dict(loss_rel_err=loss64, grad_err_of_max=grad64,
+                             worst_grads=worst(grad_errs(card64["grads"], cpu64["grads"])),
+                             batch_stats_err_of_max_1=stat64,
+                             fps_calls=len(cpu64["picks"]), fps_picks_equal=picks_eq,
+                             sst_blocks=len(cpu64["windows"]), window_assignments_equal=windows_eq),
+                   fp32_grad_err_of_max_against_cpu_fp64=fp32_grads,
+                   fp32_own_fps_picks_equal_fp64=card["own_picks_equal"] or None,
+                   rois_set_distance_fp32=None if cpu64["rois"] is None else max(
+                       set_distance(a, b) for a, b in zip(card["rois"], cpu64["rois"])),
+                   frustum_share=cpu64.get("frustum_share"),
+                   predict_fp64=dict(valid=[int(card64["pred"][2].sum()),
+                                            int(cpu64["pred"][2].sum())],
+                                     valid_equal=valid_eq, box_set_distance=box_err,
+                                     score_err=score_err, nms_pairs_near_threshold=near),
+                   seconds_card=t_card, seconds_cpu=t_cpu)
+        log(f"{tag} (a) card vs cpu {json.dumps(rec)}")
+        if not same_grads:
+            errs.append(f"{model} (a): the parameters with a gradient differ between runs")
+        if not (loss64 <= 1e-8 and grad64 <= 1e-3 and stat64 <= 1e-5):
+            errs.append(f"{model} (a) float64: loss {loss64:.2e} (1e-8), grad {grad64:.2e} "
+                        f"(1e-3 of max), batch stats {stat64:.2e} (1e-5 of max(1, |v|))")
+        if model == "pointrcnn" and not (picks_eq and len(cpu64["picks"]) == 4):
+            errs.append(f"{model} (a) float64: the FPS picks differ from the CPU's")
+        if model == "sst_centerpoint" and not (windows_eq and len(cpu64["windows"]) == 6):
+            errs.append(f"{model} (a) float64: the window assignments differ from the CPU's")
+        if model == "caddn" and not cpu64["frustum_share"] > 0:
+            errs.append(f"{model} (a): no kept voxel lies inside the frustum")
+        if not (valid_eq and box_err <= 1e-4 and score_err <= 1e-5):
+            errs.append(f"{model} (a) float64 predict: valid masks equal {valid_eq}, boxes "
+                        f"{box_err:.2e} (1e-4), scores {score_err:.2e} (1e-5)")
+        if not loss32 <= loss_limit:
+            errs.append(f"{model} (a) float32 from the CPU's float64: losses {loss32:.2e} "
+                        f"({loss_limit:.3e})")
+        for k, e in fp32_grads.items():
+            if not e["card"] <= e["limit"]:
+                errs.append(f"{model} (a) float32 from the CPU's float64: {k} gradients "
+                            f"{e['card']:.2e} of a tensor's max ({e['limit']:.3e}): "
+                            f"{e['worst_card']}")
+        del card, card64, cpu64
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---- (b) full width
+    for model in (m for m in LAST_MODELS if "b" in parts and m in cells_b):
+        cell = cells_b[model]
+        runtime = runtime_of(model, cell[0], cell[3])
+        batch = batch_of(model, cell, seed=0)
+        dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        key = LAST_LOSS[model]
+        if model == "caddn":  # the train step's batch layout carries no images
+            def step(state, b):
+                state.model.train()
+                out = state.model(flat_of(b, dev))
+                losses = {k: v.detach() for k, v in out["losses"].items()}
+                state.optimizer.zero_grad()
+                out["losses"][key].backward()
+                state.optimizer.step()
+                state.step += 1
+                return state, losses
+        else:
+            step = make_train_step(loss_key=key, device=dev)
+
+        def fresh():
+            return init_train_state(build_network(cfgs[model].MODEL, runtime, device=dev),
+                                    device=dev)
+
+        def snapshot(state, two):
+            return ([{k: float(v) for k, v in ls.items()} for ls in two],
+                    {n: p.grad.clone() for n, p in state.model.named_parameters()
+                     if p.grad is not None},
+                    {n: p.detach().clone() for n, p in state.model.named_parameters()})
+
+        state = fresh()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, losses = step(state, dev_batch)
+        first_s = time.perf_counter() - t0
+        loss_seq, durs, two = [float(losses[key])], [], [losses]
+        t_prev = time.perf_counter()
+        for i in range(b_steps):
+            state, losses = step(state, dev_batch)
+            loss_seq.append(float(losses[key]))
+            now = time.perf_counter()
+            durs.append(now - t_prev)
+            t_prev = now
+            if i == 0:
+                two.append(losses)
+                first_run = snapshot(state, two)
+        dt = sorted(durs[1:] or durs)[len(durs[1:] or durs) // 2]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        t0 = time.perf_counter()
+        _, boxes, scores, _, valid = state.model.predict(flat_of(dev_batch, dev))
+        predict_s = time.perf_counter() - t0
+        kept = valid.sum(1).tolist()
+        # every decoded row, kept or not: the first steps' heatmaps may score
+        # no box above the head's 0.1 (CaDDN's), and the decode must still run
+        finite_boxes = bool(boxes.shape[1] > 0 and torch.isfinite(boxes).all())
+        # the repeat from a fresh state; its first step metered (synchronized
+        # FPS calls, the 3D backbone's or the VFE's output kept)
+        state = fresh()
+        fps = CallMeter(sampling, "batched_farthest_point_sample", dev)
+        seen = []
+        hook_on = state.model.backbone_3d if model == "sst_centerpoint" else state.model.vfe
+        hook = None if hook_on is None else hook_on.register_forward_hook(
+            lambda m, i, o: seen.append({k: o[k] for k in ("voxel_valid", "voxel_features",
+                                                           "window_mappings") if k in o}))
+        try:
+            t0 = time.perf_counter()
+            state, losses = step(state, dev_batch)
+            metered_s = time.perf_counter() - t0
+        finally:
+            fps.restore()
+            if hook is not None:
+                hook.remove()
+        if model == "pointrcnn":
+            extra = dict(fps_s_a_forward=fps.seconds, fps_calls_a_forward=fps.calls)
+        elif model == "sst_centerpoint":
+            v = seen[0]["voxel_valid"]
+            extra = dict(pillars=int(v.sum()), window_cap_drop_share_by_block=[
+                float((v & ~mp[2]).sum()) / max(int(v.sum()), 1)
+                for mp in seen[0]["window_mappings"]])
+        else:
+            vf = seen[0]["voxel_features"][seen[0]["voxel_valid"]]
+            extra = dict(kept_voxels=int(seen[0]["voxel_valid"].sum()),
+                         frustum_share=float((vf != 0).any(1).double().mean()))
+        del seen
+        two = [losses]
+        state, losses = step(state, dev_batch)
+        two.append(losses)
+        again = snapshot(state, two)
+        differing = [n for n in first_run[2]
+                     if not (torch.equal(first_run[2][n], again[2][n])
+                             and torch.equal(first_run[1].get(n, again[2][n]),
+                                             again[1].get(n, again[2][n])))]
+        repeats = first_run[0] == again[0] and not differing
+        del state, first_run, again, dev_batch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec = dict(model=model, range_m=cell[0], points=[cell[2], cell[1]], voxel_cap=cell[3],
+                   point_cap=cell[5], images=cell[4], steps=b_steps, first_step_s=first_s,
+                   step_s=durs, steps_per_s=1.0 / dt, peak_gb=peak_gb, losses=loss_seq,
+                   metered_step_s=metered_s, predict_s=predict_s, kept_boxes=kept,
+                   decoded_rows=list(boxes.shape[:2]), decoded_rows_finite=finite_boxes,
+                   two_steps_repeat_bit_for_bit=repeats,
+                   tensors_differing_on_repeat=differing[:5], **extra)
+        log(f"{tag} (b) {json.dumps(rec)}")
+        if not all(np.isfinite(loss_seq)) or not loss_seq[-1] < loss_seq[0]:
+            errs.append(f"{model} (b): losses {loss_seq} not finite and falling")
+        if not repeats:
+            errs.append(f"{model} (b): two steps from the same seed differ in {differing[:5]}")
+        if not finite_boxes:
+            errs.append(f"{model} (b): predict decoded no rows or non-finite boxes")
+        if model == "caddn" and not extra["frustum_share"] > 0:
+            errs.append(f"{model} (b): no kept voxel lies inside the frustum")
+
+    # ---- (c) the CLIs
+    if "c" in parts:
+        errs += detector_cli_runs(repo, dev, tag, (("pointrcnn", "total_loss"),
+                                                   ("sst_centerpoint", "center_loss")), cli,
+                                  rehearse, "p12")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{tag}: kernel launches in phase 12({parts}) {json.dumps(launches)}")
+    if any(launches.values()):
+        errs.append(f"phase 12({parts}) launched a kernel of the extraction path: {launches}")
+    return errs
+
+
+DETECTOR_PHASES = (anchor_detectors_phase, pv_detectors_phase, last_detectors_phase)
+
+
+def detector_phases(repo, dev, gpu_line, kernels, rehearse, sizes):
+    """Phases 10-12 (``sizes``: theirs, in order): their card-against-CPU
+    steps (a), mostly the CPU's float64 work, in a second process
+    (``card_vs_cpu_main``) beside (b) and (c) in this one; fails the run on
+    a failure of either. The two take turns on the card (``card_alone``),
+    and this one first gives back the cache of phases 1-9."""
+    global CARD_LOCK
+    import torch
+
+    t_a = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_a_") as tmp:
+        spec, out_path = Path(tmp) / "spec.pkl", Path(tmp) / "card_vs_cpu.log"
+        CARD_LOCK = str(Path(tmp) / "card.lock")
+        spec.write_bytes(pickle.dumps((str(repo), gpu_line, rehearse, sizes, CARD_LOCK)))
+        with open(out_path, "w") as out:
+            child = subprocess.Popen([sys.executable, str(repo / "chip_smoke.py"),
+                                      "--card-vs-cpu", str(spec)], stdout=out,
+                                     stderr=subprocess.STDOUT)
+        atexit.register(child.kill)
+        for name, phase, size in zip(("10", "11", "12"), DETECTOR_PHASES, sizes):
+            t0 = time.perf_counter()
+            # phase 12's full-width steps and CLI runs reserve up to 77 GB of
+            # the card's 80: the second process takes no card turn meanwhile
+            with card_alone(f"{name}(b, c)") if name == "12" else contextlib.nullcontext():
+                errs = phase(repo, dev, gpu_line, kernels, rehearse, size, parts="bc")
+            log(f"# phase {name}(b, c): {time.perf_counter() - t0:.1f} s")
+            if errs:
+                fail("; ".join(errs))
+        t0 = time.perf_counter()
+        rc = child.wait()
+        log(f"# phases 10(a)-12(a) in their own process (waited {time.perf_counter() - t0:.1f} "
+            f"s after 12(c)); its output:")
+        child_out = out_path.read_text()
+        sys.stdout.write(child_out)
+        CARD_LOCK = None
+        log(f"# phases 10-12: {time.perf_counter() - t_a:.1f} s")
+        if rc:  # its last lines to the standard error too, where they are seen
+            sys.stderr.write("".join(child_out.splitlines(keepends=True)[-40:]))
+            fail(f"phases 10(a)-12(a) (card against CPU) failed: exit code {rc}")
+
+
+def card_vs_cpu_main(spec):
+    """Phases 10(a), 11(a) and 12(a) alone, as ``detector_phases`` starts
+    them in a second process (``--card-vs-cpu <spec>``: the pickled repo,
+    card line, rehearsal flag, the three phases' sizes and the ``CARD_LOCK``
+    file), two of the CPU's threads left to the first process. Exits 1 on a
+    failure."""
+    global CARD_LOCK
+    import torch
+
+    repo, gpu_line, rehearse, sizes, CARD_LOCK = pickle.loads(Path(spec).read_bytes())
+    repo = Path(repo)
+    sys.path.insert(0, str(repo))
+    from pcseqlearning_tpu_torch.ops import pair_min as pm_mod, sorted_grid as sg
+
+    torch.set_num_threads(max(1, torch.get_num_threads() - 2))
+    dev = torch.device("cpu" if rehearse else "cuda")
+    kernels = {"pair_min": pm_mod.pair_min, "cc_round": sg.cc_round,
+               "radius_scan": sg.radius_scan}
+    errs = []
+    for name, phase, size in zip(("10", "11", "12"), DETECTOR_PHASES, sizes):
+        t0 = time.perf_counter()
+        errs += phase(repo, dev, gpu_line, kernels, rehearse, size, parts="a")
+        log(f"# phase {name}(a): {time.perf_counter() - t0:.1f} s")
+    if errs:
+        log("# phases 10(a)-12(a) FAILED: " + "; ".join(errs))
+        sys.exit(1)
 
 
 def arg_value(flag, default):
@@ -2731,6 +3299,15 @@ def main():
         detector_sizes = (3.2, 500, 1024), (3.2, 500, 1024, 2, 3)
         cli_size = (4, 3000, 2, 2)
         anchor_sizes = pv_sizes = ((3.2, 500, 1024), (3.2, 500, 1024, 2, 2), cli_size)
+        # phase 12: per model (extent, points, batch, cap, image hw, point cap)
+        tiny = {"pointrcnn": (3.2, 500, 2, 1024, None, None),
+                "sst_centerpoint": (3.2, 500, 2, 1024, None, None),
+                "caddn": (3.2, 500, 2, 1024, (64, 96), None)}
+        # PointRCNN's (a) at the card's cell, where FP32_LAST_LIMITS was
+        # measured (at the tiny cell its float32 RoI head lies 5.6e-2 of max
+        # from float64 on a CPU)
+        last_sizes = (dict(tiny, pointrcnn=(6.4, 2_500, 2, 30_000, None, None)), tiny, 2,
+                      cli_size)
         dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
             "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
             "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
@@ -2747,12 +3324,12 @@ def main():
         # 7(a): the range cut to +-19.2 m and 2 x 20,000 points, so the CPU
         # side takes seconds; 7(b): bench_detector's cell
         detector_sizes = (19.2, 20_000, 30_000), (74.88, 160_000, 120_000, 2, 8)
-        # phase 8: 8 batches of train frames (16 at batch 2, 8 steps an
-        # epoch) and 4 val frames of 160,000 points, bench_detector's Waymo
-        # frame size; --detector-batch N runs it at batch N (the config's own
-        # BATCH_SIZE_PER_GPU is 8)
+        # phase 8: 4 batches of train frames (8 at batch 2, 4 steps an epoch;
+        # cut from 8 batches for the run's time) and 4 val frames of
+        # 160,000 points, bench_detector's Waymo frame size; --detector-batch
+        # N runs it at batch N (the config's own BATCH_SIZE_PER_GPU is 8)
         cli_batch = int(arg_value("--detector-batch", 2))
-        cli_size = (8 * cli_batch, 160_000, 4, cli_batch)
+        cli_size = (4 * cli_batch, 160_000, 4, cli_batch)
         # phase 9: (a) phase 7(a)'s cell with a cap that cuts no stage of
         # the one-rank table (its fullest, the stride-4 stage, holds ~118k
         # voxels against cap / 2); (b) 4 frames of 40,000 points, 30,000
@@ -2760,11 +3337,25 @@ def main():
         # ~114k against cap / 4); (c) the bench scene's first 20 frames
         dist_sizes = ((19.2, 20_000, 300_000), (4, 40_000, 30_000, 600_000, []),
                       (20, 90_000, 2, 10))
-        # phases 10 and 11: (a) phase 7(a)'s cell, (b) bench_detector's (phase
-        # 10's steps cut from 8 to 4, for the run's time), (c) phase 8's train
-        # frames at batch 2, one epoch
-        pv_sizes = (detector_sizes[0], detector_sizes[1], (16, 160_000, 4, 2))
-        anchor_sizes = (pv_sizes[0], pv_sizes[1][:4] + (4,), pv_sizes[2])
+        # phases 10 and 11: (a) phase 7(a)'s cell, (b) bench_detector's (the
+        # steps cut from 8 to 4, for the run's time), (c) 8 train frames of
+        # phase 8's scene (cut from 16, for the run's time) at batch 2, one
+        # epoch
+        pv_sizes = (detector_sizes[0], detector_sizes[1][:4] + (4,), (8, 160_000, 4, 2))
+        anchor_sizes = pv_sizes
+        # phase 12: per model (extent, points, batch, cap, image hw, point cap);
+        # (a) +-6.4 m, 2 x 2,500 points (not phase 7(a)'s cell: the CPU's
+        # float64 steps there took 19-57 s a model, for the run's time); (b)
+        # bench_detector's cell (PointRCNN on POINT_CAP rows, SST at VOXEL_CAP),
+        # CaDDN on Waymo front-camera-sized images with the CLI's default cap;
+        # (c) as phases 10(c) and 11(c)
+        last_a = {"pointrcnn": (6.4, 2_500, 2, 30_000, None, None),
+                  "sst_centerpoint": (6.4, 2_500, 2, 30_000, None, None),
+                  "caddn": (6.4, 2_500, 2, 30_000, (320, 480), None)}
+        last_b = {"pointrcnn": (74.88, 160_000, 2, 16_384, None, 16_384),
+                  "sst_centerpoint": (74.88, 160_000, 2, 120_000, None, None),
+                  "caddn": (74.88, 160_000, 2, 16_384, (1280, 1920), None)}
+        last_sizes = (last_a, last_b, 4, pv_sizes[2])
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -3017,19 +3608,8 @@ def main():
     if errs:
         fail("; ".join(errs))
 
-    # ---- 10. the anchor detectors and Voxel R-CNN -----------------------------
-    t0 = time.perf_counter()
-    errs = anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, anchor_sizes)
-    log(f"# phase 10: {time.perf_counter() - t0:.1f} s")
-    if errs:
-        fail("; ".join(errs))
-
-    # ---- 11. PartA2 and the PV-RCNN family ---------------------------------------
-    t0 = time.perf_counter()
-    errs = pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, pv_sizes)
-    log(f"# phase 11: {time.perf_counter() - t0:.1f} s")
-    if errs:
-        fail("; ".join(errs))
+    # ---- 10-12. the other nine detectors ---------------------------------------
+    detector_phases(repo, dev, gpu_line, kernels, rehearse, (anchor_sizes, pv_sizes, last_sizes))
 
     for r in rows:
         log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "
@@ -3048,4 +3628,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--card-vs-cpu" in sys.argv[1:]:
+        card_vs_cpu_main(arg_value("--card-vs-cpu", None))
+    else:
+        main()

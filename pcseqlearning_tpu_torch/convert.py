@@ -56,28 +56,35 @@ def config_from_jax(cfg, env=os.environ, jax_backend="tpu"):
 
 
 # flax module names -> the port's module names (layer names the two share,
-# BaseBEVBackbone's, the backbones', the anchor head's convs and the RoI
-# head's pooling layers, are not listed)
+# BaseBEVBackbone's, the backbones', the anchor head's convs, the RoI heads'
+# pooling layers, SST's pos_embed_<i> and block_<i>, PointNet++'s sa<i> /
+# fp<i>, the point head's cls / box and the image encoder's, are not listed)
 _FLAX_NAMES = {"MaskedBatchNorm_0": "bn", "SubMConvBlock_0": "conv0", "SubMConvBlock_1": "conv1",
                "BatchNorm2d_0": "shared_bn", "Conv_0": "shared_conv", "Conv_1": "hm",
-               "Conv_2": "center", "Conv_3": "center_z", "Conv_4": "dim", "Conv_5": "rot"}
+               "Conv_2": "center", "Conv_3": "center_z", "Conv_4": "dim", "Conv_5": "rot",
+               "SAGroup_0": "group", "MultiHeadDotProductAttention_0": "attn"}
 _FLAX_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
                 ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
                 ("batch_stats", "var"): "running_var",
                 ("params", "group_kernel"): "group_kernel"}
 
 
-# flax's auto-named layers: Dense_i -> linear{i}, MaskedBatchNorm_i ->
-# norm{i}, under the pillar VFE's PFN ("vfe"), the RoI heads' FC trunk
-# ("head") and PVRCNNHead's pooling MLP ("roi_head"), the keypoint branch
-# ("pfe") and its SA groups ("sa_<source>"), and the co-train's seg head
-_AUTO_NAMED = re.compile(r"(Dense|MaskedBatchNorm)_(\d+)$")
-_AUTO_PARENTS = ("vfe", "head", "roi_head", "pfe", "seg_head")
+# flax's auto-named layers: Dense_i -> linear{i}, MaskedBatchNorm_i and
+# LayerNorm_i -> norm{i}, under the pillar VFE's PFN ("vfe"), the RoI heads'
+# FC trunk ("head") and PVRCNNHead's pooling MLP ("roi_head"), the keypoint
+# branch ("pfe") and its SA groups ("sa_<source>"), the co-train's seg head,
+# the point head ("dense_head"), SST's input layer ("backbone_3d") and blocks
+# ("block_<i>"), and PointNet++'s SA groups ("SAGroup_0") and FP layers
+# ("fp<i>")
+_AUTO_NAMED = re.compile(r"(Dense|MaskedBatchNorm|LayerNorm)_(\d+)$")
+_AUTO_PARENTS = ("vfe", "head", "roi_head", "pfe", "seg_head", "dense_head", "backbone_3d",
+                 "SAGroup_0")
+_AUTO_PARENT_PATTERN = re.compile(r"(sa_.*|block_\d+|fp\d+)$")
 
 
 def _port_name(parent, name):
     hit = _AUTO_NAMED.match(name)
-    if hit and (parent in _AUTO_PARENTS or parent.startswith("sa_")):
+    if hit and (parent in _AUTO_PARENTS or _AUTO_PARENT_PATTERN.match(parent)):
         return ("linear" if hit[1] == "Dense" else "norm") + hit[2]
     return _FLAX_NAMES.get(name, name)
 
@@ -95,7 +102,10 @@ def detector_params_from_flax(variables):
     ...}, leaves as NumPy arrays) -> the port's state_dict, every leaf taken
     exactly once.
 
-    Layouts: sparse conv kernels stay [K, Cin, Cout] (offsets in
+    Layouts: flax DenseGeneral kernels of attention, [in, heads, hd] for q,
+    k and v and [heads, hd, out] for the output, become torch's Linear
+    (heads x hd, in) and (out, heads x hd), their biases flattened; sparse
+    conv kernels stay [K, Cin, Cout] (offsets in
     ``itertools.product`` (dz, dy, dx) order), and so does the vector
     pool's per-voxel ``group_kernel`` [V, Cin, Cout]; flax Dense kernels
     (in, out) become torch's Linear (out, in); flax Conv kernels (H, W, in,
@@ -113,6 +123,14 @@ def detector_params_from_flax(variables):
         key = ".".join([_port_name(p, m) for p, m in zip([""] + mods, mods)]
                        + [_FLAX_LEAVES[(coll, name)]])
         a = np.asarray(leaf)
+        if len(mods) > 1 and mods[-2].startswith("MultiHeadDotProductAttention"):
+            # DenseGeneral: q / k / v kernels [in, heads, hd] and biases [heads,
+            # hd], the output kernel [heads, hd, out]: over the flattened
+            # (heads, hd)
+            if name == "kernel":
+                a = a.reshape(-1, a.shape[-1]) if mods[-1] == "out" else a.reshape(a.shape[0], -1)
+            else:
+                a = a.reshape(-1)
         if name == "kernel" and a.ndim == 2:
             a = a.T
         if name == "kernel" and a.ndim == 4:

@@ -1,14 +1,16 @@
 """Model registry (counterpart of pcseqlearning_tpu.models): ``build_network``
 dispatches on MODEL.NAME. The port has the extraction pipeline's entry model,
-``SimpleReg``, and the detectors CenterPoint, SECONDNet, SECONDNetIoU,
-PointPillar, VoxelRCNN, PartA2Net, PVRCNN, PVRCNNPlusPlus and
-PVRCNNPlusPlusCoTrain; the other detectors raise NotImplementedError naming
-the ROADMAP.md item that ports them."""
+``SimpleReg``, and the detectors CenterPoint (SST-CenterPoint is CenterPoint
+with the SST backbone), SECONDNet, SECONDNetIoU, PointPillar, VoxelRCNN,
+PartA2Net, PVRCNN, PVRCNNPlusPlus, PVRCNNPlusPlusCoTrain, PointRCNN and
+CaDDN: every config of tools/cfgs/waymo_models. Another name raises
+KeyError."""
 
 from __future__ import annotations
 
 DETECTORS = ("CenterPoint", "SECONDNet", "SECONDNetIoU", "PointPillar", "VoxelRCNN",
-             "PartA2Net", "PVRCNN", "PVRCNNPlusPlus", "PVRCNNPlusPlusCoTrain")
+             "PartA2Net", "PVRCNN", "PVRCNNPlusPlus", "PVRCNNPlusPlusCoTrain", "PointRCNN",
+             "CaDDN")
 
 
 def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):

@@ -30,8 +30,9 @@ class HeightCompression(nn.Module):
 class PointPillarScatter(nn.Module):
     """Scatter the pillar (voxel) features onto the BEV grid: row p with
     coords (b, z, y, x) fills cell (b, :, y, x) of a dense [B, C, H, W]
-    map, through ``grid_densify`` (pillar coords are unique: dynamic
-    voxelization dedupes them); stride 1."""
+    map, through ``grid_densify``: where rows share a cell (CaDDN's dense
+    voxel table puts nz voxels on each), the last row fills it, as in JAX;
+    stride 1."""
 
     def __init__(self, grid_size):
         super().__init__()

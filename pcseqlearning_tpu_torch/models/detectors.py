@@ -1,11 +1,15 @@
 """Detector assembly (counterpart of pcseqlearning_tpu.models.detectors):
 the config-driven module stack vfe -> backbone_3d -> map_to_bev -> pfe ->
 backbone_2d -> dense_head (-> seg_head), then, for a two-stage model, the
-RoI stage. It builds CenterPoint, SECONDNet, SECONDNetIoU, PointPillar,
-VoxelRCNN, PartA2Net, PVRCNN, PVRCNNPlusPlus and PVRCNNPlusPlusCoTrain as
-their configs name their modules. Every other module name of the JAX
-package raises NotImplementedError naming the ROADMAP.md item that ports
-it.
+RoI stage. A point-based model (PointRCNN: its DENSE_HEAD is PointHeadBox)
+has no VFE and no BEV path: PointNet2MSG, the point head, the RoI stage.
+It builds CenterPoint (with SST for SST-CenterPoint), SECONDNet,
+SECONDNetIoU, PointPillar, VoxelRCNN, PartA2Net, PVRCNN, PVRCNNPlusPlus,
+PVRCNNPlusPlusCoTrain, PointRCNN and CaDDN as their configs name their
+modules. The module names of the JAX package's model zoo that no config
+of tools/cfgs/waymo_models names raise NotImplementedError naming the
+ROADMAP.md item that ports them; a name neither package has raises
+KeyError, as in JAX.
 """
 
 from __future__ import annotations
@@ -16,32 +20,33 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import boxes as box_ops
 from ..ops import sparse_conv as sc
+from ..ops.sampling import top_k
 from . import roi_heads as rh
 from .backbones_2d import BaseBEVBackbone, HeightCompression, PointPillarScatter
 from .backbones_3d import BACKBONES_3D
-from .backbones_point import PointHeadSimple
+from .backbones_point import PointHeadBox, PointHeadSimple, PointNet2MSG
+from .backbones_sst import SSTBackbone
 from .backbones_unet import UNetV2, stage4_depth
 from .dense_heads import AnchorHeadSingle, CenterHead
-from .model_nms_utils import argsort_desc, top_k
+from .model_nms_utils import argsort_desc
 from .pfe import VoxelSetAbstraction
-from .vfe import DynamicMeanVFE, DynPillarVFE
+from .vfe import DynamicMeanVFE, DynPillarVFE, ImageVFE
 
-# what is left of ROADMAP.md queue 1 item 4, and the module names each part
-# brings
-_LEFT = {
-    "4.3 (PointRCNN)": ("PointRCNN", "PointNet2MSG", "PointNet2Backbone", "PointHeadBox",
-                        "PointRCNNHead"),
-    "4.4 (SST-CenterPoint)": ("SST", "SSTBackbone"),
-    "4.5 (CaDDN)": ("CaDDN", "ImageVFE"),
-}
+# the JAX package's modules that no config of tools/cfgs/waymo_models names
+# (ROADMAP.md, queue 1 item 4.6)
+_LEFT = ("DynamicVFE", "PlaneFitting", "HybridVFE", "RepsurfDynamicVFE", "KPConv", "KPConvNet",
+         "PointConvNet", "VolumeConvNet", "PointGroupNet", "PointPlaneNet", "PointNet2RepSurf")
 
 
 def unported(what, name):
-    """The NotImplementedError for module ``name`` that the port lacks,
-    naming the ROADMAP.md item that ports it."""
-    item = next((k for k, names in _LEFT.items() if name in names), "4 (the other detectors)")
-    return NotImplementedError(f"{what} {name!r} is not ported yet (ROADMAP.md, queue 1 item "
-                               f"{item})")
+    """The error for module ``name`` that the port lacks: NotImplementedError
+    naming ROADMAP.md queue 1 item 4.6 for a module of the JAX package's
+    model zoo, else KeyError, as the JAX package raises for a name it does
+    not have."""
+    if name in _LEFT:
+        return NotImplementedError(f"{what} {name!r} is not ported yet (ROADMAP.md, queue 1 "
+                                   f"item 4.6)")
+    return KeyError(name)
 
 
 def _conv_out_depth(nz):
@@ -82,8 +87,9 @@ def _anchor_cfgs(head_cfg):
 
 class Detector3DTemplate(nn.Module):
     """Config-driven detector. In training mode the forward also puts the
-    losses in ``batch_dict["losses"]``: the dense head's, and with a
-    ROI_HEAD the RoI head's and their sum ``total_loss``."""
+    losses in ``batch_dict["losses"]``: the dense head's (``point_loss`` for
+    a point-based model, plus CaDDN's ``depth_loss``), and with a ROI_HEAD
+    the RoI head's and their sum ``total_loss``."""
 
     def __init__(self, model_cfg, num_classes, grid_size, point_cloud_range, voxel_size,
                  voxel_cap=16384, dense_table_cap=sc.DENSE_TABLE_CAP, generator=None,
@@ -91,68 +97,90 @@ class Detector3DTemplate(nn.Module):
         super().__init__()
         cfg = model_cfg
         name = str(cfg.get("NAME", ""))
-        vfe_cfg = cfg.get("VFE", {})
-        vfe_name = vfe_cfg.get("NAME")
+        self.is_point_based = cfg["DENSE_HEAD"]["NAME"] == "PointHeadBox"
+        self.vfe = None
         bev_channels = num_point_features  # the VFE's width, for a pillar scatter
-        if vfe_name in ("DynamicMeanVFE", "MeanVFE"):
-            self.vfe = DynamicMeanVFE(voxel_size, point_cloud_range, voxel_cap)
-        elif vfe_name in ("DynPillarVFE", "DynamicPillarVFE"):
-            self.vfe = DynPillarVFE(voxel_size, point_cloud_range, voxel_cap,
-                                    num_filters=tuple(vfe_cfg.get("NUM_FILTERS", [64])),
-                                    num_point_features=num_point_features, generator=generator)
-            bev_channels = self.vfe.out_channels
-        else:
-            raise unported("the VFE", vfe_name)
+        if "VFE" in cfg:
+            vfe_cfg = cfg["VFE"]
+            vfe_name = vfe_cfg.get("NAME")
+            if vfe_name in ("DynamicMeanVFE", "MeanVFE"):
+                self.vfe = DynamicMeanVFE(voxel_size, point_cloud_range, voxel_cap)
+            elif vfe_name in ("DynPillarVFE", "DynamicPillarVFE"):
+                self.vfe = DynPillarVFE(voxel_size, point_cloud_range, voxel_cap,
+                                        num_filters=tuple(vfe_cfg.get("NUM_FILTERS", [64])),
+                                        num_point_features=num_point_features,
+                                        generator=generator)
+                bev_channels = self.vfe.out_channels
+            elif vfe_name == "ImageVFE":  # built with its defaults, as in JAX
+                self.vfe = ImageVFE(voxel_size, point_cloud_range, voxel_cap, generator=generator)
+                bev_channels = self.vfe.out_channels
+            else:
+                raise unported("the VFE", vfe_name)
         self.backbone_3d = None
+        sparse_3d = False  # the dense head's default stride is 8 after a sparse backbone
         if "BACKBONE_3D" in cfg:
-            b3d = cfg["BACKBONE_3D"].get("NAME")
+            b3d = cfg["BACKBONE_3D"]
+            b3d_name = b3d.get("NAME")
             kw = dict(dense_table_cap=dense_table_cap, generator=generator)
-            if b3d == "UNetV2":  # no conv_out: x_conv4 goes to the BEV
+            sparse_3d = b3d_name == "UNetV2" or b3d_name in BACKBONES_3D
+            if b3d_name == "UNetV2":  # no conv_out: x_conv4 goes to the BEV
                 self.backbone_3d = UNetV2(num_point_features, grid_size, voxel_cap, **kw)
                 bev_channels = self.backbone_3d.channels[4] * stage4_depth(grid_size[2])
-            elif b3d in BACKBONES_3D:
-                self.backbone_3d = BACKBONES_3D[b3d](num_point_features, grid_size, voxel_cap,
-                                                     **kw)
+            elif b3d_name in BACKBONES_3D:
+                self.backbone_3d = BACKBONES_3D[b3d_name](num_point_features, grid_size,
+                                                          voxel_cap, **kw)
                 bev_channels = (self.backbone_3d.conv_out.weight.shape[-1]
                                 * _conv_out_depth(grid_size[2]))
+            elif b3d_name in ("SST", "SSTBackbone"):  # stays a pillar table
+                self.backbone_3d = SSTBackbone(
+                    bev_channels, dim=int(b3d.get("DIM", 128)),
+                    num_blocks=int(b3d.get("NUM_BLOCKS", 4)),
+                    window_size=int(b3d.get("WINDOW_SIZE", 12)),
+                    grid_size=(grid_size[0], grid_size[1]),
+                    num_windows_cap=int(b3d.get("NUM_WINDOWS_CAP", 2048)),
+                    window_cap=int(b3d.get("WINDOW_CAP", 144)), generator=generator)
+                bev_channels = self.backbone_3d.out_channels
+            elif b3d_name in ("PointNet2MSG", "PointNet2Backbone"):  # with its defaults
+                self.backbone_3d = PointNet2MSG(num_point_features - 3, generator=generator)
             else:
-                raise unported("the 3D backbone", b3d)
-        m2b = cfg.get("MAP_TO_BEV", {"NAME": "HeightCompression"})["NAME"]
-        if m2b == "HeightCompression":
-            self.map_to_bev = HeightCompression()
-        elif m2b == "PointPillarScatter":
-            self.map_to_bev = PointPillarScatter(grid_size)
-        else:
-            raise unported("MAP_TO_BEV", m2b)
-        # PV-RCNN's keypoint branch, between the BEV map and the 2D backbone;
-        # a PlusPlus model aggregates by vector pooling unless the config says
-        self.pfe = None
-        if "PFE" in cfg:
-            pfe_cfg = cfg["PFE"]
-            self.pfe = VoxelSetAbstraction(
-                voxel_size, point_cloud_range,
-                num_keypoints=int(pfe_cfg.get("NUM_KEYPOINTS", 2048)),
-                source_channels={"x_conv3": self.backbone_3d.channels[3],
-                                 "x_conv4": self.backbone_3d.channels[4]},
-                raw_channels=num_point_features - 3, bev_channels=bev_channels,
-                aggregation=str(pfe_cfg.get("AGGREGATION",
-                                            "vector_pool" if "PlusPlus" in name else "sa")),
+                raise unported("the 3D backbone", b3d_name)
+        # a point-based model has no BEV path
+        self.map_to_bev = self.backbone_2d = self.pfe = self.seg_head = None
+        if not self.is_point_based:
+            m2b = cfg.get("MAP_TO_BEV", {"NAME": "HeightCompression"})["NAME"]
+            if m2b == "HeightCompression":
+                self.map_to_bev = HeightCompression()
+            elif m2b == "PointPillarScatter":
+                self.map_to_bev = PointPillarScatter(grid_size)
+            else:
+                raise unported("MAP_TO_BEV", m2b)
+            # PV-RCNN's keypoint branch, between the BEV map and the 2D backbone;
+            # a PlusPlus model aggregates by vector pooling unless the config says
+            if "PFE" in cfg:
+                pfe_cfg = cfg["PFE"]
+                self.pfe = VoxelSetAbstraction(
+                    voxel_size, point_cloud_range,
+                    num_keypoints=int(pfe_cfg.get("NUM_KEYPOINTS", 2048)),
+                    source_channels={"x_conv3": self.backbone_3d.channels[3],
+                                     "x_conv4": self.backbone_3d.channels[4]},
+                    raw_channels=num_point_features - 3, bev_channels=bev_channels,
+                    aggregation=str(pfe_cfg.get("AGGREGATION",
+                                                "vector_pool" if "PlusPlus" in name else "sa")),
+                    generator=generator)
+            b2d = cfg.get("BACKBONE_2D", {"NAME": "BaseBEVBackbone"})
+            self.backbone_2d = BaseBEVBackbone(
+                bev_channels,
+                layer_nums=b2d.get("LAYER_NUMS", [5, 5]),
+                layer_strides=b2d.get("LAYER_STRIDES", [1, 2]),
+                num_filters=b2d.get("NUM_FILTERS", [128, 256]),
+                upsample_strides=b2d.get("UPSAMPLE_STRIDES", [1, 2]),
+                num_upsample_filters=b2d.get("NUM_UPSAMPLE_FILTERS", [256, 256]),
                 generator=generator)
-        b2d = cfg.get("BACKBONE_2D", {"NAME": "BaseBEVBackbone"})
-        self.backbone_2d = BaseBEVBackbone(
-            bev_channels,
-            layer_nums=b2d.get("LAYER_NUMS", [5, 5]),
-            layer_strides=b2d.get("LAYER_STRIDES", [1, 2]),
-            num_filters=b2d.get("NUM_FILTERS", [128, 256]),
-            upsample_strides=b2d.get("UPSAMPLE_STRIDES", [1, 2]),
-            num_upsample_filters=b2d.get("NUM_UPSAMPLE_FILTERS", [256, 256]),
-            generator=generator)
-        # the co-train's segmentation head over the keypoints: PointHeadSimple
-        # whatever SEG_HEAD names, as in JAX
-        self.seg_head = None
-        if "SEG_HEAD" in cfg or "CoTrain" in name:
-            self.seg_head = PointHeadSimple(self.pfe.out_channels, num_classes,
-                                            generator=generator)
+            # the co-train's segmentation head over the keypoints: PointHeadSimple
+            # whatever SEG_HEAD names, as in JAX
+            if "SEG_HEAD" in cfg or "CoTrain" in name:
+                self.seg_head = PointHeadSimple(self.pfe.out_channels, num_classes,
+                                                generator=generator)
         self.roi_head = None
         if "ROI_HEAD" in cfg:
             rcfg = cfg["ROI_HEAD"]
@@ -165,6 +193,9 @@ class Detector3DTemplate(nn.Module):
             elif rname == "PVRCNNHead":  # pools the PFE's keypoints
                 self.roi_head = rh.PVRCNNHead(self.pfe.out_channels, grid_size=grid,
                                               generator=generator)
+            elif rname == "PointRCNNHead":  # pools the PointNet++ point features
+                self.roi_head = rh.PointRCNNHead(self.backbone_3d.out_channels,
+                                                 generator=generator)
             elif rname in rh.ROI_HEADS:  # RoI-aware pooling of the raw point features,
                 # at the head's own grid (JAX builds it with its defaults)
                 self.roi_head = rh.ROI_HEADS[rname](num_point_features - 3, generator=generator)
@@ -172,16 +203,19 @@ class Detector3DTemplate(nn.Module):
                 raise unported("the RoI head", rname)
             self.num_rois = int(rcfg.get("NMS_POST_MAXSIZE", 128))
         head = cfg["DENSE_HEAD"]
-        stride = int(head.get("FEATURE_MAP_STRIDE", 1 if self.backbone_3d is None else 8))
-        c2d = self.backbone_2d.num_bev_features
-        if head["NAME"] == "CenterHead":
+        stride = int(head.get("FEATURE_MAP_STRIDE", 8 if sparse_3d else 1))
+        if self.is_point_based:
+            self.dense_head = PointHeadBox(self.backbone_3d.out_channels, num_classes,
+                                           generator=generator)
+        elif head["NAME"] == "CenterHead":
             self.dense_head = HeadWrap(CenterHead(
-                input_channels=c2d, num_classes=num_classes,
+                input_channels=self.backbone_2d.num_bev_features, num_classes=num_classes,
                 grid_size_xy=(grid_size[0], grid_size[1]), point_cloud_range=point_cloud_range,
                 feature_stride=stride, generator=generator))
         elif head["NAME"] == "AnchorHeadSingle":
             self.dense_head = HeadWrap(AnchorHeadSingle(
-                c2d, num_classes, (-(-grid_size[0] // stride), -(-grid_size[1] // stride)),
+                self.backbone_2d.num_bev_features, num_classes,
+                (-(-grid_size[0] // stride), -(-grid_size[1] // stride)),
                 point_cloud_range, _anchor_cfgs(head), predict_iou=name == "SECONDNetIoU",
                 generator=generator))
         else:
@@ -189,36 +223,63 @@ class Detector3DTemplate(nn.Module):
 
     def forward(self, batch_dict):
         """The VFE computes its cells in the points' dtype; what it returns
-        goes on in the network's (the dense head's parameters'). The
-        co-train's segmentation loss (``seg_loss``) adds to the dense head's
+        (the batch itself for a model without a VFE) goes on in the
+        network's (the dense head's parameters'). CaDDN's depth loss and the
+        co-train's segmentation loss (``seg_loss``) add to the dense head's
         loss, and so to ``total_loss``."""
         dtype = next(self.dense_head.parameters()).dtype
+        if self.vfe is not None:
+            batch_dict = self.vfe(batch_dict)
         batch_dict = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
-                      for k, v in self.vfe(batch_dict).items()}
+                      for k, v in batch_dict.items()}
         for module in (self.backbone_3d, self.map_to_bev, self.pfe, self.backbone_2d,
                        self.dense_head):
             if module is not None:
                 batch_dict = module(batch_dict)
         if self.training:
-            batch_dict["losses"] = self.dense_head.loss(batch_dict)
+            if self.is_point_based:
+                losses = PointHeadBox.loss(batch_dict, batch_dict["gt_boxes"])
+            else:
+                losses = self.dense_head.loss(batch_dict)
+            if isinstance(self.vfe, ImageVFE):
+                losses = self._add_to_base(losses, "depth_loss",
+                                           self.vfe.depth_loss(batch_dict))
+            batch_dict["losses"] = losses
         if self.seg_head is not None:
             batch_dict = self.seg_head(batch_dict)
             if self.training:
                 seg = PointHeadSimple.loss(batch_dict, batch_dict["gt_boxes"])
-                losses = dict(batch_dict["losses"], seg_loss=seg)
-                base = "center_loss" if "center_loss" in losses else "rpn_loss"
-                losses[base] = losses[base] + seg
-                batch_dict["losses"] = losses
+                batch_dict["losses"] = self._add_to_base(batch_dict["losses"], "seg_loss", seg)
         if self.roi_head is not None:
             batch_dict = self._run_roi_stage(batch_dict)
         return batch_dict
+
+    @staticmethod
+    def _add_to_base(losses, key, value):
+        """``losses`` with ``key`` set to ``value``, added to center_loss or
+        rpn_loss (whichever the dense head gave)."""
+        losses = dict(losses, **{key: value})
+        base = "center_loss" if "center_loss" in losses else "rpn_loss"
+        if base in losses:
+            losses[base] = losses[base] + value
+        return losses
 
     def _run_roi_stage(self, batch_dict):
         """Per sample, the dense head's boxes through ``proposal_layer``;
         the RoI head over the flattened RoI table; in training, the RoI
         targets and losses (``total_loss`` = the dense head's loss + both
         RoI losses), else the refined boxes and their scores."""
-        if "center_preds" in batch_dict:
+        if self.is_point_based:  # every point's box; scores -inf outside their sample
+            flat_boxes, flat_scores, _ = PointHeadBox.generate_predicted_boxes(batch_dict)
+            batch_dict["point_cls_scores"] = flat_scores
+            bidx = torch.round(batch_dict["point_coords"][:, 0]).long()
+            nb = int(batch_dict.get("batch_size", 1))
+            boxes = flat_boxes[None].expand(nb, *flat_boxes.shape)
+            scores = torch.where(bidx[None, :] == torch.arange(nb, device=bidx.device)[:, None],
+                                 flat_scores[None, :],
+                                 torch.full((), float("-inf"), dtype=flat_scores.dtype,
+                                            device=flat_scores.device))
+        elif "center_preds" in batch_dict:
             boxes, scores, _, _ = self.dense_head.generate_predicted_boxes(batch_dict)
         else:
             boxes, cls_scores = self.dense_head.generate_predicted_boxes(batch_dict)
@@ -226,6 +287,8 @@ class Detector3DTemplate(nn.Module):
         per_sample = [rh.proposal_layer(boxes[b], scores[b], num_rois=self.num_rois)
                       for b in range(boxes.shape[0])]
         rois, roi_scores, roi_valid = (torch.stack(t) for t in zip(*per_sample))
+        if self.is_point_based:
+            roi_valid = roi_valid & torch.isfinite(roi_scores)
         B, R = rois.shape[0], rois.shape[1]
         valid_flat = roi_valid.reshape(B * R)
         batch_dict["roi_batch"] = torch.arange(B, device=rois.device).repeat_interleave(R)
@@ -241,7 +304,8 @@ class Detector3DTemplate(nn.Module):
             cls_l, reg_l = rh.roi_head_loss(cls_p, reg_p, cls_t.reshape(-1),
                                             reg_t.reshape(B * R, -1), fg.reshape(-1), valid_flat)
             losses = dict(batch_dict.get("losses", {}))
-            base = "center_loss" if "center_preds" in batch_dict else "rpn_loss"
+            base = ("point_loss" if self.is_point_based else
+                    "center_loss" if "center_preds" in batch_dict else "rpn_loss")
             losses.update(rcnn_loss_cls=cls_l, rcnn_loss_reg=reg_l,
                           total_loss=losses[base] + cls_l + reg_l)
             batch_dict["losses"] = losses

@@ -125,6 +125,40 @@ class MaskedBatchNorm(_BatchNorm):
         return torch.where(valid[:, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
+class _LocalBatchNorm2d(torch.autograd.Function):
+    """Training-mode batch norm of an NCHW map over its local moments:
+    ``BatchNorm2d``'s forward, bit for bit (mean, variance about it,
+    ((x - mean) * rsqrt(var + eps)) * weight + bias), saving only x and the
+    moments for the backward, which takes the closed form dx = weight * r *
+    (dy - mean(dy) - xhat * mean(dy * xhat)) (xhat = (x - mean) * r, r =
+    rsqrt(var + eps)). Autograd of the composed forward keeps three more
+    maps a layer, which a stride-1 BEV backbone at the Waymo grid cannot
+    hold. Returns (y, mean, var); the moments carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = (1, -1, 1, 1)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        mean = x.sum((0, 2, 3)) / n
+        var = ((x - mean[None, :, None, None]) ** 2).sum((0, 2, 3)) / n
+        r = torch.rsqrt(var.view(c) + eps)
+        y = (x - mean.view(c)) * r * weight.view(c) + bias.view(c)
+        ctx.save_for_backward(x, mean, r, weight)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, r, weight = ctx.saved_tensors
+        c = (1, -1, 1, 1)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        xhat = (x - mean.view(c)) * r
+        dsum = dy.sum((0, 2, 3))
+        dxhat = (dy * xhat).sum((0, 2, 3))
+        dx = (weight.view(c) * r) * (dy - (dsum / n).view(c) - xhat * (dxhat / n).view(c))
+        return dx, dxhat, dsum, None
+
+
 class BatchNorm2d(_BatchNorm):
     """Batch norm over an NCHW map, moments over (N, H, W)."""
 
@@ -132,8 +166,9 @@ class BatchNorm2d(_BatchNorm):
         if self.training:
             n = x.shape[0] * x.shape[2] * x.shape[3]
             if _SYNC_GROUP[0] is None:
-                mean = x.sum((0, 2, 3)) / n
-                var = ((x - mean[None, :, None, None]) ** 2).sum((0, 2, 3)) / n
+                y, mean, var = _LocalBatchNorm2d.apply(x, self.weight, self.bias, self.eps)
+                self._update(mean, var)
+                return y
             else:
                 mean, var = _synced_moments(
                     x.new_tensor(float(n)), x.sum((0, 2, 3)),

@@ -2,10 +2,10 @@
 class-agnostic and per-class NMS on ``ops.boxes.nms_bev``, and the ordering
 helpers the detectors share.
 
-Orderings follow JAX's: ``top_k`` returns the lower index first among equal
-values, as ``jax.lax.top_k`` does, and ``argsort_desc`` is ``jnp.argsort(-x)``
-(stable). ``torch.topk`` promises neither on the card, so both take a
-stable sort.
+Orderings follow JAX's: ``ops.sampling.top_k`` returns the lower index
+first among equal values, as ``jax.lax.top_k`` does, and ``argsort_desc`` is
+``jnp.argsort(-x)`` (stable). ``torch.topk`` promises neither on the card,
+so both take a stable sort.
 """
 
 from __future__ import annotations
@@ -13,12 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import boxes as box_ops
-
-
-def top_k(x, k):
-    """The k largest values of x [N] and their indices, ties in index order."""
-    values, idx = torch.sort(x, descending=True, stable=True)
-    return values[:k], idx[:k]
+from ..ops.sampling import top_k
 
 
 def argsort_desc(x):

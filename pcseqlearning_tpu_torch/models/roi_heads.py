@@ -1,9 +1,8 @@
 """RoI heads (counterpart of pcseqlearning_tpu.models.roi_heads): the
 proposal layer, RoI target assignment, the refinement decode and losses
 that every two-stage model shares, and the pooled-feature heads
-``VoxelRCNNHead``, ``PVRCNNHead``, ``PartA2FCHead`` and ``SECONDHead``.
-``PointRCNNHead`` raises NotImplementedError in the detector's setup,
-naming the ROADMAP.md item that ports it.
+``VoxelRCNNHead``, ``PVRCNNHead``, ``PartA2FCHead``, ``PointRCNNHead`` and
+``SECONDHead``.
 
 No gradient is stopped: as in JAX, the RoI head's losses reach the dense
 head through the RoIs (the grid points, the canonical-frame targets and
@@ -18,10 +17,11 @@ from torch import nn
 
 from ..ops import boxes as box_ops
 from ..ops import hash_graph, roi_pool, segment_ops
+from ..ops.sampling import top_k
 from ..utils import loss_utils
 from ..utils.box_coder_utils import ResidualCoder
 from .layers import MaskedBatchNorm
-from .model_nms_utils import argsort_desc, top_k
+from .model_nms_utils import argsort_desc
 from .pfe import voxel_centers
 from .vfe import linear
 
@@ -248,12 +248,73 @@ class PartA2FCHead(nn.Module):
         return self.head(pooled.reshape(rois.shape[0], -1), roi_valid)
 
 
+class PointRCNNHead(nn.Module):
+    """RoI point pooling head (reference pointrcnn_head.py, as the JAX
+    module has it): each RoI pools ``num_sampled`` points of its own sample
+    (``roipoint_pool3d_masked``) as rows [xyz centred on the RoI, the point
+    features, the point's score, its depth |xyz| / 70 - 0.5], the xyz
+    rotated into the RoI's frame; every row goes through the ``xyz_up`` and
+    ``shared`` MLPs (linear without bias, ``MaskedBatchNorm`` over the rows
+    of RoIs that are not empty, ReLU), then a max over the RoI's rows (0
+    for an empty RoI) feeds ``_FCHead`` over the valid RoIs that are not
+    empty. ``cin`` is the point features' width."""
+
+    def __init__(self, cin, num_sampled=128, xyz_up=(128, 128), shared_mlp=(128, 256),
+                 generator=None):
+        super().__init__()
+        self.num_sampled, self.num_up, self.num_shared = num_sampled, len(xyz_up), len(shared_mlp)
+        c = 3 + cin + 2
+        for i, cout in enumerate(xyz_up):
+            setattr(self, f"xyz_up{i}", linear(c, cout, generator=generator))
+            setattr(self, f"xyz_up_bn{i}", MaskedBatchNorm(cout))
+            c = cout
+        for i, cout in enumerate(shared_mlp):
+            setattr(self, f"shared{i}", linear(c, cout, generator=generator))
+            setattr(self, f"shared_bn{i}", MaskedBatchNorm(cout))
+            c = cout
+        self.head = _FCHead(c, generator=generator)
+
+    def forward(self, batch_dict, rois, roi_valid):
+        pts = batch_dict["point_bxyz"]
+        xyz, bidx = pts[:, 1:4], torch.round(pts[:, 0]).long()
+        n, r, s = xyz.shape[0], rois.shape[0], self.num_sampled
+        valid = batch_dict.get("point_valid")
+        if valid is None:
+            valid = torch.ones(n, dtype=torch.bool, device=xyz.device)
+        feats = batch_dict.get("point_features", batch_dict.get("point_feat"))
+        if feats is None:
+            feats = xyz.new_zeros((n, 1))
+        scores = batch_dict.get("point_cls_scores")
+        if scores is None:
+            scores = xyz.new_ones(n)
+        roi_b = batch_dict.get("roi_batch")
+        if roi_b is None:
+            roi_b = torch.zeros(r, dtype=torch.int64, device=rois.device)
+        pair_valid = valid[None, :] & (bidx[None, :] == roi_b[:, None])
+        depth = roi_pool._true_div(torch.sqrt((xyz * xyz).sum(-1, keepdim=True)), 70.0) - 0.5
+        ext = torch.cat([feats, scores[:, None].to(feats.dtype), depth.to(feats.dtype)], dim=-1)
+        pooled, empty = roi_pool.roipoint_pool3d_masked(xyz, ext, rois, pair_valid, s)
+        c, sn = torch.cos(-rois[:, 6])[:, None], torch.sin(-rois[:, 6])[:, None]
+        lx = pooled[..., 0] * c - pooled[..., 1] * sn
+        ly = pooled[..., 0] * sn + pooled[..., 1] * c
+        h = torch.cat([torch.stack([lx, ly, pooled[..., 2]], dim=-1), pooled[..., 3:]], dim=-1)
+        h = h.reshape(r * s, -1)
+        flat_v = (~empty)[:, None].expand(r, s).reshape(-1)
+        for name, num in (("xyz_up", self.num_up), ("shared", self.num_shared)):
+            for i in range(num):
+                bn = getattr(self, f"{name}_bn{i}")
+                h = torch.relu(bn(getattr(self, f"{name}{i}")(h), flat_v))
+        h = h.reshape(r, s, -1)
+        feat = torch.where(empty[:, None, None], torch.full_like(h, float("-inf")), h).amax(dim=1)
+        feat = torch.where(empty[:, None], feat.new_zeros(()), feat)
+        return self.head(feat, roi_valid & ~empty)
+
+
 class SECONDHead(PartA2FCHead):
     """The JAX package's SECONDHead: PartA2FCHead's RoI-aware pooling trunk
     under another name (no config names it)."""
 
 
-# the RoI heads the port has; the JAX package's PointRCNNHead raises in the
-# detector's setup, naming the ROADMAP.md item that ports it
 ROI_HEADS = {"VoxelRCNNHead": VoxelRCNNHead, "PVRCNNHead": PVRCNNHead,
-             "PartA2FCHead": PartA2FCHead, "SECONDHead": SECONDHead}
+             "PartA2FCHead": PartA2FCHead, "PointRCNNHead": PointRCNNHead,
+             "SECONDHead": SECONDHead}

@@ -1,7 +1,7 @@
 """RoI pooling (counterpart of pcseqlearning_tpu.ops.roi_pool): the RoI
-grid that Voxel R-CNN's and PV-RCNN's heads pool at, and RoI-aware voxel
-pooling (PartA2's head). ``roipoint_pool3d`` belongs to PointRCNN
-(ROADMAP.md, queue 1 item 4.3). Plain PyTorch, as the JAX module is XLA.
+grid that Voxel R-CNN's and PV-RCNN's heads pool at, RoI-aware voxel
+pooling (PartA2's head) and RoI point pooling (PointRCNN's head). Plain
+PyTorch, as the JAX module is XLA.
 """
 
 from __future__ import annotations
@@ -95,3 +95,64 @@ def roiaware_pool3d(points_xyz, point_feats, rois, point_valid=None, roi_valid=N
     occ = segment_ops.segment_count(key, num) > 0.5
     c = point_feats.shape[-1]
     return pooled.reshape(r, g, g, g, c), occ.reshape(r, g, g, g)
+
+
+def _first_inside(inside, num_sampled):
+    """Each row's first ``num_sampled`` True columns of inside [R, N] in
+    index order, the rest filled with the row's first (with N - 1 where a
+    row has none): [R, S] int64. Any ascending selection of the inside
+    columns is the JAX function's sort of their indices, so the ranks come
+    from a cumulative count rather than a sort."""
+    r, n = inside.shape
+    rank = torch.cumsum(inside.to(torch.int32), dim=1) - 1
+    ri, pi = torch.nonzero(inside & (rank < num_sampled), as_tuple=True)
+    picked = torch.full((r, num_sampled), n, dtype=torch.int64, device=inside.device)
+    picked[ri, rank[ri, pi].long()] = pi
+    first = torch.clamp(picked[:, :1], max=n - 1)
+    return torch.where(picked < n, picked, first)
+
+
+def _pool_points(points_xyz, point_feats, inside, num_sampled):
+    """(pooled [R, S, 3 + C] rows of [xyz, feats] for ``_first_inside``,
+    empty [R]); the gather carries the gradient reproducibly."""
+    r = inside.shape[0]
+    picked = _first_inside(inside, num_sampled)
+    feats = torch.cat([points_xyz, point_feats.to(points_xyz.dtype)], dim=-1)
+    pooled = segment_ops.take_rows(feats, picked.reshape(-1)).reshape(r, num_sampled, -1)
+    return pooled, ~inside.any(dim=1)
+
+
+def _inside(points_xyz, rois):
+    """[R, N]: each point strictly inside each RoI (|local| < half size +
+    1e-6 on every axis, as the JAX functions test), no gradient."""
+    rois = rois.detach()
+    local = _to_local(points_xyz.detach(), rois)
+    return (local.abs() < rois[:, None, 3:6] / 2.0 + 1e-6).all(dim=-1)
+
+
+def roipoint_pool3d(points_xyz, point_feats, rois, num_sampled=512, point_valid=None):
+    """Each RoI's first ``num_sampled`` valid points inside it, in index
+    order, as rows [x, y, z, features], the rest filled with its first such
+    point; an empty RoI gives zeros and empty = True.
+
+    Args: points_xyz [N, 3]; point_feats [N, C]; rois [R, 7]; point_valid
+    [N] bool (default all valid).
+    Returns: pooled [R, S, 3 + C]; empty [R] bool."""
+    inside = _inside(points_xyz, rois)
+    if point_valid is not None:
+        inside = inside & point_valid[None, :]
+    pooled, empty = _pool_points(points_xyz, point_feats, inside, num_sampled)
+    return torch.where(empty[:, None, None], pooled.new_zeros(()), pooled), empty
+
+
+def roipoint_pool3d_masked(points_xyz, point_feats, rois, pair_valid, num_sampled=512):
+    """``roipoint_pool3d`` with a mask pair_valid [R, N] of the (RoI, point)
+    pairs that may pool (PointRCNN's head: each RoI's own sample), and the
+    pooled xyz centred on the RoI (its centre subtracted, which carries the
+    gradient into the RoIs); an empty RoI gives zeros.
+
+    Returns: pooled [R, S, 3 + C]; empty [R] bool."""
+    pooled, empty = _pool_points(points_xyz, point_feats,
+                                 _inside(points_xyz, rois) & pair_valid, num_sampled)
+    pooled = torch.cat([pooled[..., :3] - rois[:, None, 0:3], pooled[..., 3:]], dim=-1)
+    return torch.where(empty[:, None, None], pooled.new_zeros(()), pooled), empty

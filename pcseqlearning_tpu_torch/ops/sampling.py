@@ -1,6 +1,7 @@
 """Point sampling (counterpart of pcseqlearning_tpu.ops.sampling): farthest
 point sampling, and the brute-force kNN that the ground stage calls (TLS
-curvature over plane centers). Plain PyTorch, as the JAX module is XLA.
+curvature over plane centers) and PointNet++'s feature propagation, with
+a stable top-k. Plain PyTorch, as the JAX module is XLA.
 """
 
 from __future__ import annotations
@@ -54,24 +55,38 @@ def farthest_point_sample(xyz, num_samples, valid=None):
         xyz, num_samples, None if valid is None else valid[None])[0]
 
 
-def knn_bruteforce(ref_xyz, query_xyz, k, ref_valid=None):
+def top_k(x, k):
+    """The k largest values along x's last dimension and their indices, ties
+    in index order (``jax.lax.top_k``'s order; ``torch.topk`` promises none):
+    a stable sort."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def knn_bruteforce(ref_xyz, query_xyz, k, ref_valid=None, ref_batch=None, query_batch=None):
     """Exact kNN: the |q|^2 + |r|^2 - 2 q.r expansion preselects 2k+8
     candidates, whose distances are then recomputed by direct differences.
+    References that are not valid, and with ``ref_batch`` and
+    ``query_batch`` those of another sample, are at d^2 = inf in both
+    rankings; equal distances rank the lower index first, as in JAX.
 
     Returns (idx [M, k] int64, dist2 [M, k])."""
     n = ref_xyz.shape[0]
     if ref_valid is None:
         ref_valid = torch.ones(n, dtype=torch.bool, device=ref_xyz.device)
+    other = None
+    if ref_batch is not None and query_batch is not None:
+        other = query_batch[:, None] != ref_batch[None, :]
     qn = (query_xyz * query_xyz).sum(-1)
     rn = (ref_xyz * ref_xyz).sum(-1)
     cross = (query_xyz[:, None, :] * ref_xyz[None, :, :]).sum(-1)
     d2 = qn[:, None] + rn[None, :] - 2.0 * cross
     inf = torch.tensor(float("inf"), dtype=ref_xyz.dtype, device=ref_xyz.device)
-    d2 = torch.where(ref_valid[None, :], d2, inf)
-    k2 = min(n, 2 * k + 8)
-    cand = torch.topk(-d2, k2, dim=1).indices
+    bad = ~ref_valid[None, :] if other is None else other | ~ref_valid[None, :]
+    d2 = torch.where(bad, inf, d2)
+    cand = top_k(-d2, min(n, 2 * k + 8))[1]
     diff = ref_xyz[cand] - query_xyz[:, None, :]
     d2_exact = (diff * diff).sum(-1)
-    d2_exact = torch.where(~ref_valid[cand], inf, d2_exact)
-    neg, pos = torch.topk(-d2_exact, k, dim=1)
+    bad = ~ref_valid[cand] if other is None else torch.gather(other, 1, cand) | ~ref_valid[cand]
+    neg, pos = top_k(torch.where(bad, inf, d2_exact).neg(), k)
     return torch.gather(cand, 1, pos), -neg

@@ -281,15 +281,24 @@ def sparse_conv3d(st: SparseTensor, weights, bias=None, kernel_size=3, stride=2,
 
 
 class _GridDensify(torch.autograd.Function):
-    """[V, C] rows -> [L, C] grid rows; each valid row owns one cell. The
-    forward scatters V row ids into a cell -> row table and gathers feature
-    rows per cell; the backward gathers dY at each row's cell."""
+    """[V, C] rows -> [L, C] grid rows. The forward scatters V row ids into
+    a cell -> row table and gathers feature rows per cell; where valid rows
+    share a cell, the largest row id owns it on every device (a max
+    scatter: the JAX scatter on the CPU keeps its last writer, the largest
+    row; a plain indexed write is undefined on the card). The backward
+    gathers dY at each valid row's cell, whether or not the row owns it, as
+    the JAX custom VJP does."""
 
     @staticmethod
     def forward(ctx, L, feats, valid, lin):
         v = feats.shape[0]
-        table = torch.full((L,), v, dtype=torch.int64, device=feats.device)
-        table[lin[valid]] = torch.arange(v, device=feats.device)[valid]
+        dev = feats.device
+        lin = lin.long()
+        keep = valid & (lin >= 0) & (lin < L)  # the JAX scatter drops cells out of range
+        rows = torch.where(keep, torch.arange(v, device=dev), torch.full((v,), -1, device=dev))
+        table = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        table = table.scatter_reduce(0, torch.where(keep, lin, torch.zeros_like(lin)), rows, "amax")
+        table = torch.where(table < 0, torch.full_like(table, v), table)
         fz = torch.cat([_mask_features(feats, valid), feats.new_zeros((1, feats.shape[1]))])
         ctx.save_for_backward(valid, lin)
         ctx.L = L

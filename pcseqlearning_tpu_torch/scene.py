@@ -14,7 +14,9 @@ train and val sequences of the detector CLIs' smoke run and tests, and
 ``detector_argv`` is those CLIs' command line over ``DETECTOR_CFGS``.
 ``bench_detector_batch`` is ``bench.py::bench_detector``'s batch for
 ``DETECTOR_CFG`` (CenterPoint); ``lattice_detector_batch`` is the same
-with its boxes on a lattice, one heatmap cell each. ``make_scene(...,
+with its boxes on a lattice, one heatmap cell each, and
+``camera_detector_batch`` the same with RGB images and a side camera for
+CaDDN. ``make_scene(...,
 ring=R)`` puts the clusters evenly on a circle of radius R instead and
 keeps their points' z in [0, 3.5] m (every draw unchanged): well apart,
 inside the detector's range under any global rotation and scaling, so each
@@ -261,3 +263,36 @@ def lattice_detector_batch(batch_size, n_points, extent, seed=0, boxes=64, spaci
     xy = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)[:boxes]
     out["gt_boxes"][:, :boxes, 0:2] = xy + 0.3
     return out
+
+
+def camera_detector_batch(batch_size, n_points, extent, image_hw, camera_y, seed=0,
+                          focal=2055.0):
+    """``bench_detector_batch`` with what CaDDN's ImageVFE reads: uniform
+    RGB images [B, H, W, 3] in [0, 1) (drawn from RandomState(seed + 1)),
+    and a pinhole camera (``focal`` px at the Waymo front camera's width of
+    1,920, scaled to W; the principal point at the centre) 1.5 m up at y =
+    ``camera_y``, looking along -y: lidar to camera x_cam = -x, y_cam = 1.5
+    - z, z_cam = camera_y - y. ImageVFE keeps the dense grid's first rows
+    (sample 0's lowest z-slab, from y = -extent up): put the camera a few
+    metres past the last kept row, so that every kept voxel lies in front
+    of it beyond the first depth bin."""
+    out = bench_detector_batch(batch_size, n_points, extent, seed)
+    rng = np.random.RandomState(seed + 1)
+    h, w = image_hw
+    f = focal * w / 1920.0
+    K = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]], np.float32)
+    T = np.array([[-1.0, 0, 0, 0], [0, 0, -1.0, 1.5], [0, -1.0, 0, camera_y], [0, 0, 0, 1.0]],
+                 np.float32)
+    out.update(images=rng.rand(batch_size, h, w, 3).astype(np.float32),
+               calib_K=np.broadcast_to(K, (batch_size, 3, 3)).copy(),
+               calib_T=np.broadcast_to(T, (batch_size, 4, 4)).copy())
+    return out
+
+
+def caddn_camera_y(extent, voxel_y, voxel_cap, standoff=12.0):
+    """``camera_y`` for ``camera_detector_batch``: ``standoff`` m past the
+    last y row that ImageVFE's ``voxel_cap`` keeps of a +-``extent`` m grid
+    with ``voxel_y`` m cells (the rows of sample 0's lowest z-slab)."""
+    nx = int(round(2 * extent / voxel_y))
+    rows = -(-voxel_cap // nx)
+    return -extent + rows * voxel_y + standoff

@@ -307,9 +307,11 @@ def test_build_network_centerpoint_yaml(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         build_network(cfg.MODEL, runtime)  # the card by default
-    for name in ("PointRCNN", "CaDDN"):  # detectors the port does not have yet
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_network(dict(cfg.MODEL, NAME=name), runtime, device="cpu")
-    bad = EDict(dict(cfg.MODEL, DENSE_HEAD={"NAME": "PointHeadBox"}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    for name in ("DynamicVFE", "HybridVFE"):  # the model zoo's, not ported yet
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 4.6"):
+            build_network(dict(cfg.MODEL, VFE={"NAME": name}), runtime, device="cpu")
+    with pytest.raises(KeyError):  # a detector neither package has
+        build_network(dict(cfg.MODEL, NAME="NoSuchDetector"), runtime, device="cpu")
+    bad = EDict(dict(cfg.MODEL, BACKBONE_3D={"NAME": "KPConv"}))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.6"):
         tbuild(bad, runtime, device="cpu")

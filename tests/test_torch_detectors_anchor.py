@@ -265,18 +265,52 @@ def test_build_network_yaml(name, monkeypatch):
         build_network(cfg.MODEL, runtime)
 
 
-OTHERS = sorted(set(os.path.basename(p)[:-5] for p in glob.glob(
-    os.path.join(REPO, "tools/cfgs/waymo_models/*.yaml"))) - set(PORTED) - {"centerpoint"})
+ALL_YAMLS = sorted(os.path.basename(p)[:-5] for p in glob.glob(
+    os.path.join(REPO, "tools/cfgs/waymo_models/*.yaml")))
+# the last three configs, each with a module of the JAX package's model zoo
+# (ROADMAP.md queue 1 item 4.6) in place of its own
+SWAPS = {"pointrcnn": ("BACKBONE_3D", "KPConv"), "sst_centerpoint": ("VFE", "DynamicVFE"),
+         "caddn": ("VFE", "PlaneFitting")}
+LEFT = ([("VFE", n) for n in ("DynamicVFE", "PlaneFitting", "HybridVFE", "RepsurfDynamicVFE")]
+        + [("BACKBONE_3D", n) for n in ("KPConv", "KPConvNet", "PointConvNet", "VolumeConvNet",
+                                        "PointGroupNet", "PointPlaneNet", "PointNet2RepSurf")])
 
 
-@pytest.mark.parametrize("name", OTHERS)
+def _raises_4_6(cfg, section, module):
+    model = EDict(dict(cfg.MODEL, **{section: {"NAME": module}}))
+    with pytest.raises(NotImplementedError, match=rf"{module}.*ROADMAP.md, queue 1 item 4\.6"):
+        build_network(model, dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(SWAPS))
 def test_other_detectors_raise_naming_their_item(name):
+    """Each of the last three configs builds; with a module of queue 1 item
+    4.6 in its place (a VFE or 3D backbone that no config names) it raises
+    NotImplementedError naming that item."""
     cfg = _yaml(name)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 4\.[1-5]"):
-        build_network(cfg.MODEL, dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
+    build_network(cfg.MODEL, dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
+    _raises_4_6(cfg, *SWAPS[name])
+
+
+@pytest.mark.parametrize("section,module", LEFT, ids=[m for _, m in LEFT])
+def test_model_zoo_modules_raise_naming_item_4_6(section, module):
+    """Every module name of the JAX package's model zoo that the port lacks
+    raises NotImplementedError naming queue 1 item 4.6; a name that neither
+    package has raises KeyError, as in JAX."""
+    cfg = _yaml("centerpoint")
+    _raises_4_6(cfg, section, module)
+    with pytest.raises(KeyError):
+        build_network(EDict(dict(cfg.MODEL, **{section: {"NAME": module + "Nowhere"}})),
+                      dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
 
 
 def test_seven_detectors_remain():
-    """Three configs remain unported: pointrcnn, sst_centerpoint and caddn
-    (queue 1 items 4.3-4.5)."""
-    assert OTHERS == ["caddn", "pointrcnn", "sst_centerpoint"]
+    """No detector config remains: all twelve YAMLs of tools/cfgs/waymo_models
+    build on the CPU at test_all_cfgs.py's tiny geometry, each with the
+    detector its MODEL.NAME names."""
+    assert len(ALL_YAMLS) == 12
+    assert set(ALL_YAMLS) == set(PORTED) | {"centerpoint"} | set(SWAPS)
+    for name in ALL_YAMLS:
+        cfg = _yaml(name)
+        m = build_network(cfg.MODEL, dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
+        assert type(m).__name__ == "Detector3DTemplate", name

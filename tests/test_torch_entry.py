@@ -103,10 +103,10 @@ def test_cli_needs_a_card_unless_cpu_and_refuses_detectors(tmp_path, monkeypatch
                 "--set", "ROOT_DIR", str(tmp_path)]
     with pytest.raises(RuntimeError, match="cuda"):  # the detector CLI needs a card too
         train.main(detector)
-    # a detector the port does not have yet is refused by build_network
-    detector[0] = str(REPO / "tools/cfgs/waymo_models/pointrcnn.yaml")
-    with pytest.raises(NotImplementedError, match="PointRCNN.*queue 1 item 4"):
-        train.main(detector[:3] + ["--device", "cpu"] + detector[3:])
+    # a module the port does not have yet is refused by build_network
+    with pytest.raises(NotImplementedError, match="DynamicVFE.*queue 1 item 4.6"):
+        train.main(detector[:3] + ["--device", "cpu"] + detector[3:]
+                   + ["MODEL.VFE.NAME", "DynamicVFE"])
 
 
 def _direct_pair_min(a, b, a_mask, b_mask):
@@ -192,19 +192,21 @@ def test_slice_matches_jax(tmp_path, monkeypatch, jax_knn_proposal_pallas_tracki
 
 
 def test_cli_refuses_detector_training_before_building(tmp_path):
-    """The detector-training command with a detector that the port does not
-    have (PointRCNN) exits with the NotImplementedError that names
-    ROADMAP.md's queue 1 item 4, before the model or a checkpoint is built:
-    no checkpoint directory is written."""
+    """The detector-training command with a module that the port does not
+    have (centerpoint.yaml with the model zoo's DynamicVFE) exits with the
+    NotImplementedError that names ROADMAP.md's queue 1 item 4.6, before
+    the model or a checkpoint is built: no checkpoint directory is
+    written."""
     res = subprocess.run(
         [sys.executable, "-m", "pcseqlearning_tpu_torch.train",
-         "tools/cfgs/waymo_models/pointrcnn.yaml",
+         "tools/cfgs/waymo_models/centerpoint.yaml",
          "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
          "tools/cfgs/optimizers/adamW_onecycle.yaml", "--device", "cpu",
-         "--set", "ROOT_DIR", str(tmp_path), "DATA_CONFIG.DATA_PATH", str(tmp_path / "none")],
+         "--set", "ROOT_DIR", str(tmp_path), "DATA_CONFIG.DATA_PATH", str(tmp_path / "none"),
+         "MODEL.VFE.NAME", "DynamicVFE"],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     last = res.stderr.strip().splitlines()[-1]
-    assert last.startswith("NotImplementedError") and "queue 1 item 4" in last, res.stderr
-    assert "PointRCNN" in last
+    assert last.startswith("NotImplementedError") and "queue 1 item 4.6" in last, res.stderr
+    assert "DynamicVFE" in last
     assert not list(tmp_path.rglob("ckpt")) and not list(tmp_path.rglob("checkpoint_epoch_*"))
