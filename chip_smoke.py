@@ -200,11 +200,30 @@ host cost.
              no kernel of the port runs (launches 0 / 0 / 0).
              Phases 10(a), 11(a) and 12(a), mostly the CPU's float64 steps,
              run in a second process (``chip_smoke.py --card-vs-cpu``, on
-             the same card, two CPU threads left) beside 10-12 (b) and (c);
-             its output is printed after 12(c), and its failure fails the
-             run. The times of (b) and (c) are taken beside it. The two
-             take turns on the card (``card_alone``): the second process's
-             card steps, and all of phase 12 (b) and (c), run alone.
+             the same card, two CPU threads left) that starts before phase
+             8 and runs beside phases 8, 9, 10-12 (b) and (c) and 13; its
+             output is printed after phase 13, and its failure fails the
+             run. The times of those phases are taken beside it. The two
+             take turns on the card (``card_alone``) for the second
+             process's card steps and all of phase 12 (b) and (c).
+ 13. data    the detector's training-data path (see data_phase), over phase
+             8's sequences written again at its seeds:
+             (a) the native npy loader (g++ at first use) reads every frame
+                 of both sequences and one array of each supported dtype at
+                 each ndim 1-4: equal to np.load bit for bit; both times; a
+                 missing file raises IOError
+             (b) tools.create_gt_database over the val sequence on the card,
+                 then on the CPU: the dbinfos pickle and every crop equal
+             (c) the train CLI with centerpoint.yaml, onecycle_centerpoint.yaml
+                 and scene.write_data_path_cfg's data config (gt_sampling
+                 from (b)'s database, the local augmentors, the frame cache,
+                 MIX3D), from the database's parent directory: a host pass
+                 that counts the pasted boxes (> 0) and the points a sample;
+                 then one epoch of 4 steps at batch 2 with --fix_random_seed,
+                 twice: checkpoint_epoch_1 equal bit for bit, losses finite;
+                 step and data seconds beside phase 8(a)'s, peak memory
+             Every line starts "# data [<card>, <power limit>]"; no kernel of
+             the port runs (launches 0 / 0 / 0).
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -224,6 +243,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import fcntl
+import io
 import json
 import os
 import pickle
@@ -1304,6 +1324,37 @@ def precise_bn_copy(src, dst, model, loader, n_cap, device):
     torch.save({**ckpt, "model": {k: v.cpu() for k, v in model.state_dict().items()}}, dst)
 
 
+def rehearsal_overrides(rehearse, points):
+    """The detector CLIs' --set overrides of a CPU rehearsal: a CPU-sized
+    model and grid, POINT_CAP ``points``; none on the card, which runs the
+    configs' own."""
+    return [] if not rehearse else [
+        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
+        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
+        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
+        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
+        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
+
+
+def same_checkpoint(a, b):
+    """The names of what differs between two checkpoints of the train CLI
+    (parameters, buffers, optimizer moments, count and step)."""
+    import torch
+
+    diff = [k for k, v in a["model"].items() if not torch.equal(v, b["model"][k])]
+    oa, ob = a["optimizer"], b["optimizer"]
+    diff += [f"optimizer {k}[{i}]" for k in oa["moments"]
+             for i, (x, y) in enumerate(zip(oa["moments"][k], ob["moments"][k]))
+             if not torch.equal(x, y)]
+    if oa["count"] != ob["count"] or a["step"] != b["step"]:
+        diff.append(f"count/step {oa['count']}/{a['step']} vs {ob['count']}/{b['step']}")
+    return diff
+
+
+# phase 8(a)'s median step and mean data seconds, printed beside phase 13's
+PHASE8_STEP_TIMES = {}
+
+
 def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
     """Phase 8: the detector's training and evaluation through the port's
     own CLIs, train.main and test.main, with centerpoint.yaml,
@@ -1354,13 +1405,7 @@ def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
     from pcseqlearning_tpu_torch.scene import detector_argv, write_detector_sequences
 
     frames, points, val_frames, batch = size
-    # the rehearsal's CPU-sized model and grid; the card runs the configs' own
-    shrink = [] if not rehearse else [
-        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
-        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
-        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
-        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
-        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
+    shrink = rehearsal_overrides(rehearse, points)
     errs = []
     log(f"# detector cli: torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
         f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
@@ -1392,6 +1437,7 @@ def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
         hist = res_a["history"]
         steps_per_epoch = len(hist) // 2
         summary = summarize(hist)
+        PHASE8_STEP_TIMES.update(median_step_s=summary["median_step_s"], data_s=summary["data_s"])
         opt = cfg.OPTIMIZATION
         lr0 = float(np.float32(opt.LR / opt.DIV_FACTOR))
         ckpt_dir = Path(res_a["ckpt_dir"])
@@ -1433,19 +1479,13 @@ def detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, size):
         res_b, _ = run_train("b", 2)
         other = torch.load(Path(res_b["ckpt_dir"]) / "checkpoint_epoch_2", map_location="cpu",
                            weights_only=True)
-        differing = [k for k, v in trained["model"].items()
-                     if not torch.equal(v, other["model"][k])]
-        oa, ob = trained["optimizer"], other["optimizer"]
-        differing += [f"optimizer {k}[{i}]" for k in oa["moments"]
-                      for i, (x, y) in enumerate(zip(oa["moments"][k], ob["moments"][k]))
-                      if not torch.equal(x, y)]
-        same_count = oa["count"] == ob["count"] and trained["step"] == other["step"]
+        differing = same_checkpoint(trained, other)
         log(f"# detector cli (b): {time.perf_counter() - t0:.1f} s; checkpoint_epoch_2 equal to "
-            f"(a)'s bit for bit: {not differing and same_count} (count {ob['count']}, step "
+            f"(a)'s bit for bit: {not differing} (count {other['optimizer']['count']}, step "
             f"{other['step']}; differing {differing[:5]})")
-        if differing or not same_count:
+        if differing:
             errs.append(f"detector cli (b): checkpoint_epoch_2 differs from (a)'s in "
-                        f"{differing[:5]} (counts {oa['count']} / {ob['count']})")
+                        f"{differing[:5]}")
         # ---- (c)
         t0 = time.perf_counter()
         res_c, _ = run_train("a", 3, "--max_ckpt_save_num", "2")
@@ -1552,6 +1592,187 @@ def _to_cpu(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_to_cpu(v) for v in x)
     return x
+
+
+def data_phase(repo, dev, gpu_line, kernels, rehearse, size):
+    """Phase 13: the detector's training-data path as users run it, over
+    phase 8's sequences written again at its seeds (train: seed 0, val:
+    seed 1, every box a Vehicle). (a) The native npy loader
+    (``AsyncNpyPool(workers=4).load_many``, built with g++ at first use)
+    reads every frame of both sequences and one array of each supported
+    dtype (f32, f64, i32, i64, u8) at each ndim 1-4: each equals np.load bit
+    for bit; both times printed; a missing file raises IOError. (b)
+    ``tools.create_gt_database`` over the val sequence (--sampled_interval
+    1) on the card, then on the CPU: the dbinfos pickle and every crop
+    equal; objects per class and seconds printed. (c) ``scene.
+    write_data_path_cfg``'s data config (detection_1sweep.yaml with
+    gt_sampling from (b)'s database, 'Vehicle:40', MIN_POINTS 5, the local
+    augmentors, USE_SHARED_MEMORY and MIX3D at PROB 0.5) with
+    centerpoint.yaml and onecycle_centerpoint.yaml through the train CLI,
+    the working directory at the database's parent (gt_sampling resolves
+    DB_INFO_PATH and the crops against it, as in JAX): first one host pass
+    of the same dataset and RandomState(666) over the epoch, printing per
+    batch the boxes gt_sampling pasted (at least one over the epoch) and
+    the points a sample after MIX3D; then one epoch at --batch_size 2 with
+    --fix_random_seed, twice into two tags: checkpoint_epoch_1 equal bit for
+    bit, losses finite; median step and mean data seconds beside phase
+    8(a)'s, peak memory. No kernel of the port runs (0 / 0 / 0). Every line
+    starts "# data [<card>, <power limit>]". Returns failures."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch import train
+    from pcseqlearning_tpu_torch.datasets import build_dataloader, native_loader
+    from pcseqlearning_tpu_torch.scene import (DETECTOR_CFGS, detector_argv,
+                                               write_data_path_cfg, write_detector_sequences)
+    from pcseqlearning_tpu_torch.tools import create_gt_database
+
+    tag = f"# data [{gpu_line}]"
+    frames, points, val_frames, batch = size
+    shrink = rehearsal_overrides(rehearse, points)
+    errs = []
+    for fn in kernels.values():
+        fn.launches = 0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
+        t0 = time.perf_counter()
+        train_path, val_path = write_detector_sequences(root, frames, points, val_frames)
+        log(f"{tag} wrote {frames} train and {val_frames} val frames x {points} points in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # ---- (a) the native loader
+        t0 = time.perf_counter()
+        built = not native_loader.library_path().exists()
+        pool = native_loader.AsyncNpyPool(workers=4)
+        build_s = time.perf_counter() - t0
+        frame_paths = sorted(Path(root).glob("*/*/*/[0-9][0-9][0-9][0-9].npy"))
+        rng = np.random.RandomState(0)
+        typed = []
+        for dt in (np.float32, np.float64, np.int32, np.int64, np.uint8):
+            for shape in ((1000,), (300, 8), (7, 5, 3), (2, 3, 4, 5)):
+                typed.append(Path(root) / f"{np.dtype(dt).name}_{len(shape)}d.npy")
+                np.save(typed[-1], (rng.rand(*shape) * 250).astype(dt))
+        paths = frame_paths + typed
+        t0 = time.perf_counter()
+        got = pool.load_many(paths)
+        pool_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [np.load(p) for p in paths]
+        np_s = time.perf_counter() - t0
+        bad = [p.name for p, a, b in zip(paths, got, want)
+               if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes()]
+        try:
+            pool.load(Path(root) / "missing.npy")
+            missing = "no error"
+        except IOError as e:
+            missing = f"IOError: {e}"
+        nbytes = sum(a.nbytes for a in want)
+        log(f"{tag} (a) loader: library {'built' if built else 'found'} in {build_s:.2f} s; "
+            f"{len(frame_paths)} frames + {len(typed)} typed arrays ({nbytes / 1e6:.1f} MB): "
+            f"AsyncNpyPool(4).load_many {pool_s:.4f} s, np.load {np_s:.4f} s; not equal "
+            f"{bad}; missing file: {missing}")
+        if bad or len(frame_paths) != frames + val_frames:
+            errs.append(f"data (a): the loader differs from np.load on {bad} "
+                        f"({len(frame_paths)} frames found)")
+        if not missing.startswith("IOError"):
+            errs.append(f"data (a): a missing file gave {missing}")
+        # ---- (b) the GT database, on the card then on the CPU
+        db_cfg = write_data_path_cfg(Path(root) / "db_data.yaml", "waymo_dbinfos_val.pkl",
+                                     data_path=val_path)
+        db_dir, db_pkl = Path(val_path) / "gt_database_val", Path(val_path) / "waymo_dbinfos_val.pkl"
+        runs = {}
+        for device in (dev.type, "cpu"):
+            t0 = time.perf_counter()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                create_gt_database.main([db_cfg, "--split", "val", "--sampled_interval", "1",
+                                         "--device", device])
+            secs = time.perf_counter() - t0
+            runs[device] = (db_pkl.read_bytes(), {f.name: f.read_bytes()
+                                                  for f in sorted(db_dir.iterdir())})
+            log(f"{tag} (b) create_gt_database --device {device}: {secs:.2f} s, "
+                f"{len(runs[device][1])} crops; it printed {printed.getvalue().splitlines()}")
+        (pkl_a, crops_a), (pkl_b, crops_b) = runs[dev.type], runs["cpu"]
+        crops_differ = sorted(n for n in crops_a.keys() | crops_b.keys()
+                              if crops_a.get(n) != crops_b.get(n))
+        log(f"{tag} (b) card against CPU: dbinfos pickle equal {pkl_a == pkl_b}, crops "
+            f"differing {crops_differ[:5]} of {len(crops_b)}")
+        if pkl_a != pkl_b or crops_differ or not crops_b:
+            errs.append(f"data (b): the database on the card differs from the CPU's "
+                        f"(pickle equal {pkl_a == pkl_b}, crops {crops_differ[:5]})")
+        # ---- (c) training on the data path, from the database's parent
+        data_cfg = write_data_path_cfg(Path(root) / "data_path.yaml", db_pkl.name)
+        cfgs = (DETECTOR_CFGS[0], data_cfg, DETECTOR_CFGS[2])
+
+        def argv(extra_tag):
+            return detector_argv(repo, train_path, root, dev.type, "--batch_size", str(batch),
+                                 "--epochs", "1", "--fix_random_seed", "--extra_tag", extra_tag,
+                                 overrides=shrink, cfgs=cfgs)
+
+        os.chdir(val_path)
+        try:
+            t0 = time.perf_counter()
+            cfg = train.parse_config(argv("host"))[1]
+            dataset, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch,
+                                               training=True,
+                                               rng=np.random.RandomState(train.SEED))
+            sampler, pasted = dataset.data_augmentor._db_sampler, []
+
+            def counting(d):
+                n = len(d["gt_boxes"])
+                out = sampler(d)
+                pasted[-1].append(len(out["gt_boxes"]) - n)
+                return out
+
+            dataset.data_augmentor._db_sampler = counting
+            per_sample, it = [], iter(loader)
+            for _ in range(len(loader)):
+                pasted.append([])
+                b = next(it)
+                per_sample.append(np.bincount(b["point_bxyz"][:, 0].astype(int),
+                                              minlength=batch).tolist())
+            log(f"{tag} (c) host pass ({time.perf_counter() - t0:.2f} s, {len(loader)} batches, "
+                f"{len(sampler.db_infos.get('Vehicle', []))} Vehicle objects in the database): "
+                f"boxes pasted per batch (MIX3D's inner items included) {pasted}; points a "
+                f"sample after MIX3D {per_sample}")
+            if not sum(map(sum, pasted)):
+                errs.append("data (c): gt_sampling pasted no box over the epoch")
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            results = []
+            for extra_tag in ("d1", "d2"):
+                t0 = time.perf_counter()
+                res = train.main(argv(extra_tag))
+                results.append((res, time.perf_counter() - t0))
+        finally:
+            os.chdir(cwd)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        ckpts = [torch.load(Path(r["ckpt_dir"]) / "checkpoint_epoch_1", map_location="cpu",
+                            weights_only=True) for r, _ in results]
+        differing = same_checkpoint(*ckpts)
+        hist = results[0][0]["history"]
+        summary = summarize(hist)
+        rec = dict(runs_s=[s_ for _, s_ in results], steps=len(hist),
+                   median_step_s=summary["median_step_s"], data_s=summary["data_s"],
+                   phase8_a=PHASE8_STEP_TIMES, points_a_step=[h["points"] for h in hist],
+                   losses=summary["epoch_losses"], peak_gb=peak_gb)
+        log(f"{tag} (c) train CLI twice {json.dumps(rec)}; checkpoint_epoch_1 equal bit for "
+            f"bit: {not differing} {differing[:5]}")
+        if differing:
+            errs.append(f"data (c): checkpoint_epoch_1 differs between the two runs in "
+                        f"{differing[:5]}")
+        if not all(math.isfinite(v) for r, _ in results for h in r["history"]
+                   for v in h["losses"].values()):
+            errs.append("data (c): a loss is not finite")
+        if len(hist) != frames // batch:
+            errs.append(f"data (c): {len(hist)} steps, not {frames // batch}")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{tag} kernel launches in phase 13 {json.dumps(launches)}")
+    if any(launches.values()):
+        errs.append(f"phase 13 launched a kernel of the extraction path: {launches}")
+    return errs
 
 
 def dp_cell_arm(group, dev, repo, runtime, batch, steps=3):
@@ -2095,12 +2316,7 @@ def detector_cli_runs(repo, dev, tag, models, cli, rehearse, extra_tag, extra=No
     extra = extra or {}
     errs = []
     frames, points, val_frames, batch_size = cli
-    all_shrink = [] if not rehearse else [
-        "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
-        "DATA_CONFIG.VOXEL_SIZE", "[1.6,1.6,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
-        "[1.6,1.6,0.2]", "MODEL.POINT_CAP", str(points), "MODEL.VOXEL_CAP", "2048",
-        "MODEL.BACKBONE_2D.LAYER_NUMS", "[1,1]", "MODEL.BACKBONE_2D.NUM_FILTERS", "[16,32]",
-        "MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS", "[16,16]"]
+    all_shrink = rehearsal_overrides(rehearse, points)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         t0 = time.perf_counter()
         train_path, val_path = write_detector_sequences(root, frames, points, val_frames)
@@ -3204,16 +3420,35 @@ def last_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="a
 DETECTOR_PHASES = (anchor_detectors_phase, pv_detectors_phase, last_detectors_phase)
 
 
-def detector_phases(repo, dev, gpu_line, kernels, rehearse, sizes):
+def run_phase(label, phase):
+    """Runs ``phase()`` (it returns its failures), logs ``label`` and its
+    seconds, and fails the run on a failure."""
+    t0 = time.perf_counter()
+    errs = phase()
+    log(f"{label}{time.perf_counter() - t0:.1f} s")
+    if errs:
+        fail("; ".join(errs))
+
+
+def detector_phases(repo, dev, gpu_line, kernels, rehearse, sizes, before=(), after=()):
     """Phases 10-12 (``sizes``: theirs, in order): their card-against-CPU
     steps (a), mostly the CPU's float64 work, in a second process
-    (``card_vs_cpu_main``) beside (b) and (c) in this one; fails the run on
-    a failure of either. The two take turns on the card (``card_alone``),
-    and this one first gives back the cache of phases 1-9."""
+    (``card_vs_cpu_main``), which starts first and runs beside the
+    ``before`` phases, 10-12 (b) and (c), and the ``after`` phases in this
+    one (each a (label, phase) pair for ``run_phase``); fails the run on a
+    failure of either. The two take turns on the card (``card_alone``) only
+    for the second's card steps and phase 12 (b, c), whose full-width runs
+    reserve up to 77 GB; the other phases here take at most ~40 GB beside
+    the second's 9. This one first gives back the cache of the phases
+    before. A CPU rehearsal runs the ``before`` phases first, alone."""
     global CARD_LOCK
     import torch
 
     t_a = time.perf_counter()
+    if rehearse:  # on the CPU alone they would only contend for its cores
+        for label, phase in before:
+            run_phase(label, phase)
+        before = ()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_a_") as tmp:
@@ -3225,23 +3460,25 @@ def detector_phases(repo, dev, gpu_line, kernels, rehearse, sizes):
                                       "--card-vs-cpu", str(spec)], stdout=out,
                                      stderr=subprocess.STDOUT)
         atexit.register(child.kill)
+        for label, phase in before:
+            run_phase(label, phase)
         for name, phase, size in zip(("10", "11", "12"), DETECTOR_PHASES, sizes):
-            t0 = time.perf_counter()
             # phase 12's full-width steps and CLI runs reserve up to 77 GB of
             # the card's 80: the second process takes no card turn meanwhile
             with card_alone(f"{name}(b, c)") if name == "12" else contextlib.nullcontext():
-                errs = phase(repo, dev, gpu_line, kernels, rehearse, size, parts="bc")
-            log(f"# phase {name}(b, c): {time.perf_counter() - t0:.1f} s")
-            if errs:
-                fail("; ".join(errs))
+                run_phase(f"# phase {name}(b, c): ", lambda: phase(
+                    repo, dev, gpu_line, kernels, rehearse, size, parts="bc"))
+        for label, phase in after:
+            run_phase(label, phase)
         t0 = time.perf_counter()
         rc = child.wait()
         log(f"# phases 10(a)-12(a) in their own process (waited {time.perf_counter() - t0:.1f} "
-            f"s after 12(c)); its output:")
+            f"s after the last phase here); its output:")
         child_out = out_path.read_text()
         sys.stdout.write(child_out)
         CARD_LOCK = None
-        log(f"# phases 10-12: {time.perf_counter() - t_a:.1f} s")
+        log(f"# phases beside the second process, and its wait: "
+            f"{time.perf_counter() - t_a:.1f} s")
         if rc:  # its last lines to the standard error too, where they are seen
             sys.stderr.write("".join(child_out.splitlines(keepends=True)[-40:]))
             fail(f"phases 10(a)-12(a) (card against CPU) failed: exit code {rc}")
@@ -3308,6 +3545,7 @@ def main():
         # from float64 on a CPU)
         last_sizes = (dict(tiny, pointrcnn=(6.4, 2_500, 2, 30_000, None, None)), tiny, 2,
                       cli_size)
+        data_size = cli_size
         dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
             "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
             "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
@@ -3356,6 +3594,8 @@ def main():
                   "sst_centerpoint": (74.88, 160_000, 2, 120_000, None, None),
                   "caddn": (74.88, 160_000, 2, 16_384, (1280, 1920), None)}
         last_sizes = (last_a, last_b, 4, pv_sizes[2])
+        # phase 13: phase 8's sequences (8 train frames, 4 steps at batch 2)
+        data_size = (8, 160_000, 4, 2)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -3594,22 +3834,17 @@ def main():
     if errs and not rehearse:
         fail("; ".join(errs))
 
-    # ---- 8. the detector's training and evaluation CLIs ------------------------
-    t0 = time.perf_counter()
-    errs = detector_cli_phase(repo, dev, gpu_line, kernels, rehearse, cli_size)
-    log(f"# phase 8: {time.perf_counter() - t0:.1f} s")
-    if errs:
-        fail("; ".join(errs))
-
-    # ---- 9. the distributed paths ----------------------------------------------
-    t0 = time.perf_counter()
-    errs = dist_phase(repo, dev, gpu_line, kernels, rehearse, dist_sizes)
-    log(f"# phase 9: {time.perf_counter() - t0:.1f} s")
-    if errs:
-        fail("; ".join(errs))
-
-    # ---- 10-12. the other nine detectors ---------------------------------------
-    detector_phases(repo, dev, gpu_line, kernels, rehearse, (anchor_sizes, pv_sizes, last_sizes))
+    # ---- 8-13: the detector's CLIs, the distributed paths, the other nine
+    # detectors and the training-data path; phases 10(a)-12(a) run in a
+    # second process that starts first, beside all of them
+    detector_phases(
+        repo, dev, gpu_line, kernels, rehearse, (anchor_sizes, pv_sizes, last_sizes),
+        before=[("# phase 8: ", lambda: detector_cli_phase(repo, dev, gpu_line, kernels,
+                                                           rehearse, cli_size)),
+                ("# phase 9: ", lambda: dist_phase(repo, dev, gpu_line, kernels, rehearse,
+                                                   dist_sizes))],
+        after=[("# data: phase 13 ", lambda: data_phase(repo, dev, gpu_line, kernels, rehearse,
+                                                        data_size))])
 
     for r in rows:
         log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "

@@ -30,15 +30,15 @@ class DatasetTemplate:
             np.float32)
         self.point_feature_encoder = PointFeatureEncoder(
             self.dataset_cfg.get("POINT_FEATURE_ENCODING", {}))
-        # one RandomState for the augmentor and the processors: their draws
-        # follow the JAX package's global sequence
-        rng = rng if rng is not None else np.random.RandomState(0)
+        # one RandomState for the dataset, the augmentor and the processors:
+        # their draws follow the JAX package's global sequence
+        self.rng = rng if rng is not None else np.random.RandomState(0)
         aug_cfg = self.dataset_cfg.get("DATA_AUGMENTOR", None)
-        self.data_augmentor = (DataAugmentor(aug_cfg, class_names, rng=rng)
+        self.data_augmentor = (DataAugmentor(aug_cfg, class_names, rng=self.rng)
                                if training and aug_cfg else None)
         self.data_processor = DataProcessor(
             self.dataset_cfg.get("DATA_PROCESSOR", []),
-            point_cloud_range=self.point_cloud_range, training=training, rng=rng)
+            point_cloud_range=self.point_cloud_range, training=training, rng=self.rng)
         self.grid_size = self.data_processor.grid_size
         self.voxel_size = self.data_processor.voxel_size
 

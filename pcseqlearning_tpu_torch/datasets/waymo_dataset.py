@@ -11,14 +11,23 @@ boxes and their headings, and pads the objects per sweep. In sequence mode
 (NUM_SWEEPS covering the sequence) there is one item per sequence, its last
 sample being the anchor.
 
+Options, as in JAX:
+- USE_SHARED_MEMORY: decoded frames are kept in an in-process cache, the
+  oldest dropped once it holds more than SHARED_MEMORY_CACHE_SIZE (512);
+- SPHERICAL_RESAMPLING: each range-image row is densified along azimuth
+  (``spherical_resampling``);
+- WITH_TIME_FEAT (with NUM_SWEEPS > 1): each point's features gain, in
+  front, its sweep id over (sweeps - 1);
+- MIX3D (training): with probability PROB the item is mixed with another
+  item drawn at random (its points, point labels, boxes and names
+  appended). The dataset's ``rng`` draws ``rand`` then ``randint`` before
+  the other item's own draws.
+
 ``generate_prediction_dicts`` formats a batch's predictions as detection
 annos, and ``evaluation`` scores them against the infos' annos with the
-"waymo" metric (``runtime.eval_utils.waymo_style_ap``) or the "simple" one.
-
-Not ported (NotImplementedError; ROADMAP.md, queue 1 item 5):
-SPHERICAL_RESAMPLING, MIX3D (training), WITH_TIME_FEAT, USE_SHARED_MEMORY
-(the per-frame cache), and the "waymo_ii" metric (the interaction-index
-breakdown). No config under ``tools/cfgs/`` sets any of them.
+"waymo" metric (``runtime.eval_utils.waymo_style_ap``), the "waymo_ii"
+interaction-index breakdown (``waymo_eval_ii.ap_by_interaction_index``)
+or the "simple" one.
 """
 
 from __future__ import annotations
@@ -33,9 +42,9 @@ import torch
 
 from ..ops import boxes as box_ops
 from ..utils.edict import EDict
+from ..utils.polar_utils import cartesian_to_spherical
 from .dataset import DatasetTemplate
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 5)"
+from .processor import knn
 
 
 def _boxes_to_corners_np(boxes):
@@ -52,20 +61,18 @@ class WaymoDataset(DatasetTemplate):
         super().__init__(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
                          root_path=root_path, logger=logger, rng=rng)
         cfg = self.dataset_cfg
-        for key, used in (("SPHERICAL_RESAMPLING", True), ("MIX3D", training),
-                          ("WITH_TIME_FEAT", True), ("USE_SHARED_MEMORY", True)):
-            if used and cfg.get(key, None):
-                raise NotImplementedError(f"WaymoDataset: {key} {_NOT_PORTED}")
         self.data_path = (Path(root_path or cfg.get("DATA_PATH", "."))
                           / cfg.get("PROCESSED_DATA_TAG", "waymo_processed_data"))
         self.num_sweeps = int(cfg.get("NUM_SWEEPS", 1))
         self.sweep_dir = int(cfg.get("SWEEP_DIR", -1))
+        self.with_time_feat = bool(cfg.get("WITH_TIME_FEAT", False))
         self.load_seg = bool(cfg.get("LOAD_SEG", False))
         interval = cfg.get("SAMPLED_INTERVAL", 1)
         self.sampled_interval = int(interval.get("train" if training else "test", 1)
                                     if isinstance(interval, dict) else interval)
         self.infos = []
         self.info_pool = {}
+        self._frame_cache = {}
         self.include_waymo_data()
 
     def include_waymo_data(self):
@@ -102,6 +109,9 @@ class WaymoDataset(DatasetTemplate):
         return len(self.infos)
 
     def get_lidar(self, sequence_name, sample_idx):
+        key = (sequence_name, int(sample_idx))
+        if key in self._frame_cache:
+            return self._frame_cache[key].copy()
         pts = np.load(self.data_path / sequence_name / ("%04d.npy" % sample_idx)).astype(np.float32)
         pts[:, 3] = np.tanh(pts[:, 3])
         if pts.shape[1] > 5:
@@ -109,7 +119,68 @@ class WaymoDataset(DatasetTemplate):
         if pts.shape[1] > 7:
             pts[:, 7] *= 64
             pts[:, 6] *= 2650
+        if bool(self.dataset_cfg.get("USE_SHARED_MEMORY", False)):
+            if len(self._frame_cache) > int(self.dataset_cfg.get("SHARED_MEMORY_CACHE_SIZE", 512)):
+                self._frame_cache.pop(next(iter(self._frame_cache)))
+            self._frame_cache[key] = pts.copy()
         return pts
+
+    def spherical_resampling(self, point_wise, config=None):
+        """Densifies each range-image row (``point_rimage_h``, else the
+        fifth feature, rounded; rows of fewer than 10 points are left) along
+        azimuth: each point joins the neighbour among its 10 nearest with the
+        smallest azimuth above its own by more than 1e-6 (the first such on
+        a tie), if within 0.3 m, and points are interpolated every ~0.1 m
+        along that edge (ceil((d + 1e-6) / 0.1) - 1 of them). Every other
+        point-wise key of a new point comes from its nearest original
+        point (the lowest index of equally near ones). The kNN is
+        ``processor.knn`` (cKDTree) where JAX uses scikit-learn's
+        ``NearestNeighbors``, whose tree breaks such a tie in its own
+        traversal order."""
+        point_xyz = point_wise["point_xyz"]
+        point_feat = point_wise["point_feat"]
+        if "point_rimage_h" in point_wise:
+            rim_h = np.round(np.asarray(point_wise["point_rimage_h"])).astype(np.int64)
+        elif point_feat.shape[1] > 4:
+            rim_h = np.round(point_feat[:, 4]).astype(np.int64)
+        else:
+            return point_wise
+        new_xyz, new_feat = [point_xyz], [point_feat]
+        for h in np.unique(rim_h):
+            rows = np.nonzero(rim_h == h)[0]
+            if len(rows) < 10:
+                continue
+            p = point_xyz[rows]
+            f = point_feat[rows]
+            azimuth = np.asarray(cartesian_to_spherical(p))[:, 2]
+            dists, e1 = knn(p, p, min(10, len(rows)))
+            e0 = np.arange(len(rows))[:, None]
+            az_diff = azimuth[e0] - azimuth[e1]
+            az_diff[az_diff < 1e-6] = 1e10
+            nn_index = az_diff.argmin(axis=-1)
+            e0 = e0[:, 0]
+            d = dists[(e0, nn_index)]
+            e1 = e1[(e0, nn_index)]
+            keep = d < 0.3
+            e0, e1, d = e0[keep], e1[keep], d[keep]
+            if len(e0) == 0:
+                continue
+            n_samp = np.ceil((d + 1e-6) / 0.1) + 1
+            for s in range(1, int(n_samp.max())):
+                em = s <= n_samp - 1
+                ratio = s / (n_samp - 1)
+                em = em & (ratio > 1e-6) & (ratio < 1 - 1e-6)
+                if em.any():
+                    r = ratio[em, None]
+                    new_xyz.append(p[e0[em]] * r + p[e1[em]] * (1.0 - r))
+                    new_feat.append(f[e0[em]] * r + f[e1[em]] * (1.0 - r))
+        out = dict(point_xyz=np.concatenate(new_xyz).astype(np.float32),
+                   point_feat=np.concatenate(new_feat).astype(np.float32))
+        idx = knn(point_xyz, out["point_xyz"], 1)[1][:, 0]
+        for key in point_wise:
+            if key not in out:
+                out[key] = np.asarray(point_wise[key])[idx]
+        return EDict(out)
 
     def get_seg_label(self, sequence_name, sample_idx):
         seg_file = self.data_path / sequence_name / ("%04d_seg.npy" % sample_idx)
@@ -130,6 +201,8 @@ class WaymoDataset(DatasetTemplate):
             if seg is not None:
                 point_wise.instance_label = seg[:, 0].astype(np.int64)
                 point_wise.segmentation_label = seg[:, 1].astype(np.int64)
+        if bool(self.dataset_cfg.get("SPHERICAL_RESAMPLING", False)):
+            point_wise = self.spherical_resampling(point_wise)
         annos = info.get("annos", {})
         object_wise = EDict(
             gt_box_attr=np.asarray(annos.get("gt_boxes_lidar", np.zeros((0, 7))))
@@ -169,6 +242,10 @@ class WaymoDataset(DatasetTemplate):
             pw.point_xyz = (pw.point_xyz @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
             fid = int(str(dd.scene_wise.frame_id)[-3:])
             pw.point_sweep = np.full((len(pw.point_xyz), 1), fid, np.int32)
+            if self.num_sweeps > 1 and self.with_time_feat:
+                pw.point_feat = np.concatenate(
+                    [pw.point_sweep.astype(np.float32) / max(len(data_dicts) - 1, 1),
+                     pw.point_feat], axis=-1)
             boxes = dd.object_wise.gt_box_attr
             if len(boxes):
                 corners = _boxes_to_corners_np(boxes)
@@ -216,7 +293,7 @@ class WaymoDataset(DatasetTemplate):
                 [dd.scene_wise.get("top_lidar_origin", np.zeros(3)) for dd in data_dicts])
         return merged
 
-    def __getitem__(self, index):
+    def __getitem__(self, index, _mix3d_inner=False):
         merged = self.assemble_sweeps(index)
         cls_map = {n: i + 1 for i, n in enumerate(self.class_names)}
         ow = merged.object_wise
@@ -243,7 +320,18 @@ class WaymoDataset(DatasetTemplate):
         for k in ("segmentation_label", "instance_label"):
             if k in merged.point_wise:
                 data_dict[k] = merged.point_wise[k]
-        return self.prepare_data(data_dict)
+        data_dict = self.prepare_data(data_dict)
+        mix_cfg = self.dataset_cfg.get("MIX3D", None)
+        if mix_cfg and self.training and not _mix3d_inner:
+            if self.rng.rand() < float(mix_cfg.get("PROB", 1.0)):
+                other = self.__getitem__(self.rng.randint(len(self)), _mix3d_inner=True)
+                for key in ("points", "point_sweep", "segmentation_label", "instance_label"):
+                    if key in data_dict and key in other:
+                        data_dict[key] = np.concatenate([data_dict[key], other[key]], axis=0)
+                for key in ("gt_boxes", "gt_names"):
+                    if key in data_dict and key in other and len(other[key]):
+                        data_dict[key] = np.concatenate([data_dict[key], other[key]], axis=0)
+        return data_dict
 
     def generate_prediction_dicts(self, batch_dict, pred_dicts, class_names, output_path=None):
         """One anno per sample: frame_id, boxes_lidar, score, name (label l
@@ -263,13 +351,14 @@ class WaymoDataset(DatasetTemplate):
     def evaluation(self, det_annos, class_names, eval_metric="waymo", **kwargs):
         """(result_str, results) of ``det_annos`` against the annos of the
         first ``len(det_annos)`` infos, in order: "simple" is greedy-matching
-        AP, any other metric but "waymo_ii" the Waymo-style AP/APH."""
+        AP, "waymo_ii" the AP/APH by interaction-index level (the annos'
+        ``interaction_index``), any other metric the Waymo-style AP/APH."""
         from ..runtime import eval_utils
+        from .waymo_eval_ii import ap_by_interaction_index
 
         gt_annos = [copy.deepcopy(info["annos"]) for info in self.infos[:len(det_annos)]]
         if eval_metric == "simple":
             return eval_utils.simple_detection_eval(det_annos, gt_annos, class_names)
         if eval_metric == "waymo_ii":
-            raise NotImplementedError(f"WaymoDataset.evaluation: the metric 'waymo_ii' "
-                                      f"{_NOT_PORTED}")
+            return ap_by_interaction_index(det_annos, gt_annos, class_names)
         return eval_utils.waymo_style_ap(det_annos, gt_annos, class_names)

@@ -11,7 +11,10 @@ two-frame registration problem with a known rigid motion per cluster.
 ``write_waymo_sequence`` writes such a scene to disk in the layout that
 ``datasets.WaymoDataset`` reads; ``write_detector_sequences`` writes the
 train and val sequences of the detector CLIs' smoke run and tests, and
-``detector_argv`` is those CLIs' command line over ``DETECTOR_CFGS``.
+``detector_argv`` is those CLIs' command line over ``DETECTOR_CFGS``;
+``write_data_path_cfg`` writes their data config with the whole training
+data path switched on (GT-database paste, the local augmentors, the frame
+cache, MIX3D).
 ``bench_detector_batch`` is ``bench.py::bench_detector``'s batch for
 ``DETECTOR_CFG`` (CenterPoint); ``lattice_detector_batch`` is the same
 with its boxes on a lattice, one heatmap cell each, and
@@ -207,6 +210,49 @@ DETECTOR_CFG = "tools/cfgs/waymo_models/centerpoint.yaml"
 # the detector CLIs' configs: model, data, optimizer (the README's command)
 DETECTOR_CFGS = (DETECTOR_CFG, "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
                  "tools/cfgs/optimizers/onecycle_centerpoint.yaml")
+
+
+# the augmentors and options that write_data_path_cfg adds to the data config
+DATA_PATH_GT_SAMPLING = """\
+            - NAME: gt_sampling
+              DB_INFO_PATH: {db_info_path}
+              SAMPLE_GROUPS: ['Vehicle:40']
+              MIN_POINTS: 5
+"""
+DATA_PATH_LOCAL_AUGMENTORS = """\
+            - NAME: random_local_translation
+              LOCAL_TRANSLATION_RANGE: [-0.25, 0.25]
+              ALONG_AXIS_LIST: ['x', 'y', 'z']
+            - NAME: random_local_rotation
+              LOCAL_ROT_ANGLE: [-0.15707963, 0.15707963]
+            - NAME: random_local_scaling
+              LOCAL_SCALE_RANGE: [0.95, 1.05]
+"""
+DATA_PATH_OPTIONS = """\
+    USE_SHARED_MEMORY: True
+    MIX3D: {PROB: 0.5}
+"""
+
+
+def write_data_path_cfg(path, db_info_path, data_path=None,
+                        repo=Path(__file__).resolve().parent.parent):
+    """Write to ``path`` the detector CLIs' data config (``DETECTOR_CFGS[1]``)
+    with ``gt_sampling`` (``db_info_path``, 'Vehicle:40', MIN_POINTS 5)
+    before its augmentors, the three local augmentors after them, and
+    USE_SHARED_MEMORY and MIX3D (PROB 0.5); DATA_PATH set to ``data_path``
+    where given. Returns ``path`` as a string."""
+    text = (Path(repo) / DETECTOR_CFGS[1]).read_text()
+    if data_path is not None:
+        text = text.replace("    DATA_PATH: data/waymo\n", f"    DATA_PATH: '{data_path}'\n")
+        assert f"'{data_path}'" in text
+    head, rest = text.split("        AUG_CONFIG_LIST:\n")
+    augs, tail = rest.split("    DATA_PROCESSOR:\n")
+    text = (head + "        AUG_CONFIG_LIST:\n"
+            + DATA_PATH_GT_SAMPLING.format(db_info_path=db_info_path) + augs
+            + DATA_PATH_LOCAL_AUGMENTORS + "    DATA_PROCESSOR:\n" + tail.rstrip("\n") + "\n"
+            + DATA_PATH_OPTIONS)
+    Path(path).write_text(text)
+    return str(path)
 
 
 def write_detector_sequences(root, frames, points, val_frames=0, **scene_kw):

@@ -654,3 +654,45 @@ def test_cuda_dp_step_two_ranks_one_card(cuda_device, tmp_path):
         assert abs(ranks[0][0][0][k] - v) / max(abs(v), 1e-3) < 1e-4, k
     for k, v in ranks[0][1].items():
         assert torch.equal(v, ranks[1][1][k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_gt_databases_equal_cpu(cuda_device, tmp_path):
+    """The two database builders on the card write what they write on the
+    CPU: create_gt_database's dbinfos pickle and every crop, and
+    extract_foreground_instances' records and files."""
+    import os
+    import pickle
+
+    from pcseqlearning_tpu_torch.scene import make_scene, write_waymo_sequence
+    from pcseqlearning_tpu_torch.tools.create_gt_database import create_gt_database
+    from pcseqlearning_tpu_torch.tools.extract_foreground_instances import (
+        extract_foreground_instances)
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        seq, gt = make_scene(num_frames=2, points_per_frame=20_000, seed=3)
+        gt["gt_box_attr"][:, 6] = np.linspace(-2.0, 2.5, len(gt["gt_box_attr"]))
+        write_waymo_sequence(root, seq, gt, "segment-db")
+        cfg = EDict(DATASET="WaymoDataset", DATA_PATH=str(root),
+                    PROCESSED_DATA_TAG="waymo_processed_data_v0_5_0")
+        infos, path = create_gt_database(cfg, ["Vehicle"], split="val", sampled_interval=1,
+                                         device=dev, verbose=False)
+        with open(path, "rb") as f:
+            assert pickle.dumps(pickle.load(f)) == pickle.dumps(infos)
+        crops = {n: (root / "gt_database_val" / n).read_bytes()
+                 for n in sorted(os.listdir(root / "gt_database_val"))}
+        pts = np.load(root / "waymo_processed_data_v0_5_0" / "segment-db" / "0000.npy")
+        seg = np.load(root / "waymo_processed_data_v0_5_0" / "segment-db" / "0000_seg.npy")
+        recs = extract_foreground_instances(pts, seg[:, 1], seg[:, 0],
+                                            gt["gt_box_attr"][gt["gt_box_frame"] == 0],
+                                            "0000", str(root / "fg"), device=dev)
+        files = {n: (root / "fg" / n).read_bytes() for n in sorted(os.listdir(root / "fg"))}
+        for r in (x for v in recs.values() for x in v):
+            r["path"] = os.path.basename(r["path"])
+        out[dev] = (pickle.dumps(infos), crops, pickle.dumps(recs), files)
+    assert len(out["cpu"][1]) == 48 and len(out["cpu"][3]) > 0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a == b

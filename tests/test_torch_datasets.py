@@ -12,6 +12,7 @@ generator in JAX and from an explicit ``RandomState`` in the port: with the
 same seed they are equal.
 """
 
+import copy
 import pickle
 
 import numpy as np
@@ -192,33 +193,66 @@ def test_collate_batch_on_mixed_keys():
 
 
 def test_unported_pieces_raise(tmp_path):
-    """What the port still lacks raises, naming ROADMAP.md: a processor
-    other than the four ported ones, a local augmentor or gt_sampling, the
-    dataset options no config sets, the "waymo_ii" metric. The voxel
-    processor, the global augmentors and the "waymo" metric build."""
-    base = dict(DATASET="WaymoDataset", DATA_PATH=str(tmp_path))
-    ds, _ = t_build(dict(base, DATA_PROCESSOR=[dict(NAME="transform_points_to_voxels",
-                                                    VOXEL_SIZE=[0.1, 0.1, 0.1])]), [], 1)
+    """What the port once lacked and refused now builds and equals JAX: the
+    voxel processor's grid, a processor beyond the first four
+    (attach_spherical_feature), gt_sampling in the training split (none in
+    the test split), SPHERICAL_RESAMPLING, MIX3D, WITH_TIME_FEAT,
+    USE_SHARED_MEMORY (with its FIFO bound) and the "waymo" and "waymo_ii"
+    metrics. Batches are held as in the other tests of this file."""
+    _write(tmp_path, num_seqs=2, frames=3, points=500)
+    base = dict(DATASET="WaymoDataset", DATA_PATH=str(tmp_path),
+                PROCESSED_DATA_TAG="waymo_processed_data_v0_5_0", NUM_SWEEPS=1,
+                POINT_CLOUD_RANGE=[-75.2, -75.2, -2, 75.2, 75.2, 4],
+                DATA_PROCESSOR=[dict(NAME="shuffle_points",
+                                     SHUFFLE_ENABLED=dict(train=True, test=False))])
+    ds, _ = t_build(dict(DATASET="WaymoDataset", DATA_PATH=str(tmp_path), DATA_PROCESSOR=[
+        dict(NAME="transform_points_to_voxels", VOXEL_SIZE=[0.1, 0.1, 0.1])]), [], 1)
     assert ds.grid_size.tolist() == [1504, 1504, 60] and ds.voxel_size.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(dict(base, DATA_PROCESSOR=[dict(NAME="attach_spherical_feature")]), [], 1)
-    ds, _ = t_build(dict(base, DATA_AUGMENTOR=dict(AUG_CONFIG_LIST=[
-        dict(NAME="random_world_flip")])), [], 1, training=True)
-    assert len(ds.data_augmentor.queue) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(dict(base, DATA_AUGMENTOR=dict(AUG_CONFIG_LIST=[dict(NAME="gt_sampling")])),
-                [], 1, training=True)
+    ds, _ = t_build(dict(base, DATA_AUGMENTOR=dict(AUG_CONFIG_LIST=[dict(NAME="gt_sampling")])),
+                    [], 1, training=True)
+    assert len(ds.data_augmentor.queue) == 1 and ds.data_augmentor._db_sampler.db_infos == {}
     ds, _ = t_build(dict(base, DATA_AUGMENTOR=dict(AUG_CONFIG_LIST=[dict(NAME="gt_sampling")])),
                     [], 1, training=False)  # no augmentor in the test split
     assert ds.data_augmentor is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(dict(base, SPHERICAL_RESAMPLING=True), [], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(dict(base, MIX3D=dict(PROB=1.0)), [], 1, training=True)
-    for key in ("WITH_TIME_FEAT", "USE_SHARED_MEMORY"):
-        with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP"):
-            t_build(dict(base, **{key: True}), [], 1, training=False)
-    ds, _ = t_build(base, [], 1, training=False)
-    assert ds.evaluation([], ["Vehicle"])[1]["Vehicle/L1/AP"] == 0.0
-    with pytest.raises(NotImplementedError, match="waymo_ii.*ROADMAP"):
-        ds.evaluation([], [], eval_metric="waymo_ii")
+    names = ["Vehicle"]
+    cases = {
+        "attach_spherical_feature": (dict(base, DATA_PROCESSOR=base["DATA_PROCESSOR"] + [
+            dict(NAME="attach_spherical_feature")]), True),
+        "SPHERICAL_RESAMPLING": (dict(base, SPHERICAL_RESAMPLING=True), False),
+        "MIX3D": (dict(base, MIX3D=dict(PROB=0.6)), True),
+        "WITH_TIME_FEAT": (dict(base, NUM_SWEEPS=3, SEQUENCE_MODE=False, WITH_TIME_FEAT=True,
+                                POINT_FEATURE_ENCODING=dict(
+                                    src_feature_list=["x", "y", "z", "time", "intensity"],
+                                    used_feature_list=["x", "y", "z", "time", "intensity"])),
+                           True),
+        "USE_SHARED_MEMORY": (dict(base, USE_SHARED_MEMORY=True, SHARED_MEMORY_CACHE_SIZE=2),
+                              True),
+    }
+    for key, (cfg, training) in cases.items():
+        np.random.seed(5)
+        ds_t, ld_t = t_build(cfg, names, 2, training=training, seed=5)
+        ds_j, ld_j = j_build(JEDict(cfg), names, 2, training=training, seed=5)
+        bt, bj = _batches(ld_t) + _batches(ld_t), _batches(ld_j) + _batches(ld_j)
+        assert len(bt) == len(bj) > 0, key
+        for a, b in zip(bt, bj):
+            _assert_batches_equal(a, b)
+        n_plain = 500 * 2 * (3 if key == "WITH_TIME_FEAT" else 1)
+        if key == "SPHERICAL_RESAMPLING":
+            assert len(bt[0]["point_bxyz"]) > n_plain
+        if key == "MIX3D":
+            assert max(len(b["point_bxyz"]) for b in bt) > n_plain
+        if key == "WITH_TIME_FEAT":
+            assert sorted(np.unique(bt[0]["point_feat"][:, 0])) == [0.0, 0.5, 1.0]
+        if key == "USE_SHARED_MEMORY":
+            assert len(ds_t._frame_cache) == len(ds_j._frame_cache) == 3
+    ds, _ = t_build(base, names, 1, training=False)
+    for metric, key in (("waymo", "Vehicle/L1/AP"), ("waymo_ii", "Vehicle/II_0/AP")):
+        dets = [dict(name=info["annos"]["name"], boxes_lidar=info["annos"]["gt_boxes_lidar"],
+                     score=np.linspace(0.9, 0.1, len(info["annos"]["name"])).astype(np.float32))
+                for info in ds.infos]
+        got = ds.evaluation(copy.deepcopy(dets), names, eval_metric=metric)[1]
+        want = j_build(JEDict(base), names, 1, training=False)[0].evaluation(
+            copy.deepcopy(dets), names, eval_metric=metric)[1]
+        assert set(got) == set(want)
+        assert all(abs(got[k] - want[k]) <= 1e-9 for k in want)
+        assert abs(got[key] - 1.0) < 1e-9

@@ -197,15 +197,25 @@ def test_generate_prediction_dicts_equal_jax(datasets):
 
 
 def test_evaluation_dispatch(datasets):
-    tds, _ = datasets
+    """"waymo" and "simple" reach their metrics; "waymo_ii" reaches the
+    interaction-index AP and equals JAX's dataset's within 1e-9 (annos
+    without interaction masks: every box at level 0)."""
+    tds, jds = datasets
     tds.infos = [{"annos": g} for g in random_annos(5, frames=2)[1]]
     dets = random_annos(5, frames=2)[0]
     assert set(tds.evaluation(dets, CLASSES)[1]) == set(
         teval.waymo_style_ap(dets, [i["annos"] for i in tds.infos], CLASSES)[1])
     assert tds.evaluation(dets, CLASSES, eval_metric="simple")[1] == teval.simple_detection_eval(
         dets, [i["annos"] for i in tds.infos], CLASSES)[1]
-    with pytest.raises(NotImplementedError, match="waymo_ii.*ROADMAP"):
-        tds.evaluation(dets, CLASSES, eval_metric="waymo_ii")
+    got = tds.evaluation(copy.deepcopy(dets), CLASSES, eval_metric="waymo_ii")[1]
+    infos = jds.infos
+    try:
+        jds.infos = copy.deepcopy(tds.infos)
+        want = jds.evaluation(copy.deepcopy(dets), CLASSES, eval_metric="waymo_ii")[1]
+    finally:
+        jds.infos = infos
+    assert set(got) == set(want) and all(abs(got[k] - want[k]) <= 1e-9 for k in want)
+    assert got["Pedestrian/II_0/AP"] > 0
 
 
 def test_predictions_to_annos_equal_jax(datasets):

@@ -119,7 +119,7 @@ def test_import_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pcseqlearning_tpu' or m.startswith('pcseqlearning_tpu.')\n"
-        "       or m == 'yaml']\n"
+        "       or m == 'yaml' or m == 'sklearn' or m.startswith('sklearn.')]\n"
         "new = ['config', 'train', 'datasets.waymo_dataset', 'datasets.processor',\n"
         "       'models', 'ops.connected_components', 'utils.yaml_subset', 'utils.common_utils',\n"
         "       'ops.sparse_conv', 'models.layers', 'models.vfe', 'models.backbones_3d',\n"
@@ -129,7 +129,9 @@ def test_import_loads_no_jax():
         "       'runtime.optimization', 'runtime.train_utils', 'runtime.eval_utils',\n"
         "       'utils.dist_utils', 'parallel.mesh', 'parallel.point_shard',\n"
         "       'models.roi_heads', 'models.model_nms_utils', 'models.pfe', 'ops.roi_pool',\n"
-        "       'utils.box_coder_utils']\n"
+        "       'utils.box_coder_utils', 'utils.box_utils', 'utils.polar_utils',\n"
+        "       'datasets.native_loader', 'datasets.waymo_eval_ii', 'tools.create_gt_database',\n"
+        "       'tools.extract_foreground_instances']\n"
         "missing = [n for n in new if 'pcseqlearning_tpu_torch.' + n not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('pcseqlearning_tpu_torch')]))\n"
         "assert not bad and not missing, (bad, missing)\n"
@@ -138,6 +140,15 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 50  # every module of the port was imported
+
+
+def test_port_sources_name_no_sklearn():
+    """The card's machine has no sklearn: no source file of the port, and
+    not chip_smoke.py, names it (the kNN stages use scipy's cKDTree)."""
+    files = sorted((REPO / "pcseqlearning_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 50
+    naming = [str(f.relative_to(REPO)) for f in files if "sklearn" in f.read_text()]
+    assert naming == []
 
 
 def test_config_from_jax_carries_the_environment_defaults():
