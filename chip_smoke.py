@@ -201,8 +201,8 @@ host cost.
              Phases 10(a), 11(a) and 12(a), mostly the CPU's float64 steps,
              run in a second process (``chip_smoke.py --card-vs-cpu``, on
              the same card, two CPU threads left) that starts before phase
-             8 and runs beside phases 8, 9, 10-12 (b) and (c) and 13; its
-             output is printed after phase 13, and its failure fails the
+             8 and runs beside phases 8, 9, 10-12 (b) and (c), 13 and 14; its
+             output is printed after phase 14, and its failure fails the
              run. The times of those phases are taken beside it. The two
              take turns on the card (``card_alone``) for the second
              process's card steps and all of phase 12 (b) and (c).
@@ -224,6 +224,32 @@ host cost.
                  step and data seconds beside phase 8(a)'s, peak memory
              Every line starts "# data [<card>, <power limit>]"; no kernel of
              the port runs (launches 0 / 0 / 0).
+ 14. offline the offline Waymo data path through its three CLIs (see
+             offline_phase), at Waymo's sensor geometry (TOP 64 x 2,650 with
+             per-beam inclinations, four 200 x 600 lidars with a range,
+             ~169,000 first returns and 60 labels a frame, TOP segmentation
+             labels every 5th frame, a moving pose), 10 frames of a ~198-frame
+             segment (cut for the run's time):
+             (a) scene.write_waymo_tfrecord writes them through the port's
+                 wire-format writer
+             (b) tools.create_waymo_infos on the card, inside
+                 utils.profiler.device_trace, then on the CPU: infos, labels,
+                 _seg.npy files and point counts equal, xyz and range within
+                 one float32 ulp; seconds a frame for decode, projection, write
+             (c) tools.propagate_segmentation_labels on the card and the CPU:
+                 _propseg.npy equal but for points within 1e-5 m of a box face
+             (d) WaymoDataset reads the conversion (detection_1sweep.yaml's
+                 shape): points and boxes equal; a GeometryVisualizer from
+                 voxel_visualizer.yaml writes the batch's card tensors
+             (e) tools.waymo_fl_eval of jittered GT boxes: card = CPU to 1e-6
+             (f) the trace of (b) names the converter's regions
+             (g) the converter over 4 sequences: one process against a
+                 spawn pool of 4 (equal files, frames/s)
+             Every line starts "# offline [<card>, <power limit>]"; no kernel
+             of the port runs (launches 0 / 0 / 0). Phases 7(b) and 10(b)-12(b)
+             print beside each first step's FlopCounterMode count (``mfu``'s
+             numerator) the port's utils.flops.analytic_flops, which is the
+             JAX package's definition, and their ratio.
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -1041,7 +1067,6 @@ def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
     run's bit for bit. Returns failures."""
     import numpy as np
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
     from pcseqlearning_tpu_torch.models import build_network
@@ -1150,12 +1175,10 @@ def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
                 {n: p.detach().clone() for n, p in state.model.named_parameters()})
 
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as counter:
-        state, losses = step(state, dev_batch)
+    state, losses, flops, analytic = counted_step(step, state, dev_batch)
     two_losses = [losses]
     loss_seq = [float(losses["center_loss"])]
     first_s = time.perf_counter() - t0
-    flops = float(counter.get_total_flops())
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     durs = []
@@ -1192,7 +1215,8 @@ def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
                flop_count="torch.utils.flop_counter over the first step (matmuls, convolutions)",
                mfu=flops * steps_per_s / PEAK_FP32_FLOPS if dev.type == "cuda" else None,
                mfu_peak="67 TFLOP/s float32, TF32 off (H100 SXM data sheet, 700 W)",
-               voxels_per_sample=voxels, two_steps_repeat_bit_for_bit=repeats,
+               **flop_fields(flops, analytic), voxels_per_sample=voxels,
+               two_steps_repeat_bit_for_bit=repeats,
                tensors_differing_on_repeat=differing[:5],
                launches={name: fn.launches for name, fn in kernels.items()})
     log(f"# detector {json.dumps(rec)}")
@@ -1202,6 +1226,29 @@ def detector_phase(repo, dev, gpu_line, kernels, rehearse, sizes):
         errs.append(f"detector: two steps from the same seed do not repeat bit for bit "
                     f"(gradients or parameters differ in {differing[:5]})")
     return errs
+
+
+def counted_step(step, state, batch):
+    """One ``step(state, batch)`` under torch's FlopCounterMode (the
+    numerator of the ``mfu`` figures) and the port's
+    ``utils.flops.AnalyticFlopCounter`` (the JAX package's
+    ``analytic_flops`` definition, which charges a convolution's input
+    gradient as XLA's lhs-dilated convolution): (state, losses, the first's
+    FLOPs, the second's)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pcseqlearning_tpu_torch.utils.flops import AnalyticFlopCounter
+
+    with FlopCounterMode(display=False) as counter, AnalyticFlopCounter() as analytic:
+        state, losses = step(state, batch)
+    return state, losses, float(counter.get_total_flops()), float(analytic.total)
+
+
+def flop_fields(flops, analytic):
+    """The record's FLOP fields beside ``mfu``'s numerator."""
+    return dict(analytic_flops_per_step=analytic,
+                analytic_flops_is="utils.flops.analytic_flops: the JAX package's definition",
+                analytic_over_flop_counter=analytic / flops if flops else None)
 
 
 def summarize(history):
@@ -1772,6 +1819,295 @@ def data_phase(repo, dev, gpu_line, kernels, rehearse, size):
     log(f"{tag} kernel launches in phase 13 {json.dumps(launches)}")
     if any(launches.values()):
         errs.append(f"phase 13 launched a kernel of the extraction path: {launches}")
+    return errs
+
+
+def offline_phase(repo, dev, gpu_line, kernels, rehearse, size):
+    """Phase 14: the offline Waymo data path through its three CLIs, at
+    ``size`` = (frames, lidars, labels a frame). (a)
+    ``scene.write_waymo_tfrecord`` writes the frames (TOP segmentation
+    labels every 5th); seconds and MB. (b) ``tools.create_waymo_infos`` on
+    the card, inside ``utils.profiler.device_trace``, then with --device cpu:
+    infos, poses, labels, ``_seg.npy`` files and point counts equal; xyz and
+    range within one float32 ulp, the values that differ counted; seconds a
+    frame split into decode, projection and write. (c)
+    ``tools.propagate_segmentation_labels`` over the card's conversion on
+    the card and, over a copy of it, on the CPU: the ``_propseg.npy`` files
+    equal, or each differing point within 1e-5 m of a box face (printed).
+    (d) ``WaymoDataset`` through detection_1sweep.yaml (its DATA_PATH the
+    card's conversion) collates the first two frames: points and boxes equal
+    the conversion's (the points in POINT_CLOUD_RANGE; every box, labeled by
+    its class's index, 0 for a Sign, its heading within 1e-6 after the
+    dataset's pose round trip); a ``GeometryVisualizer`` from voxel_visualizer.yaml with a
+    SAVE_DIR writes that batch, on ``dev``'s tensors, to a ``.geom.pkl``:
+    one point cloud of every point (float32, uncast) and one box segment of
+    the boxes. (e) ``tools.waymo_fl_eval`` of the GT infos against their
+    boxes jittered by seeded noise with a tenth dropped, on the card and on
+    the CPU: equal counts, statistics within 1e-6. (f) the trace of (b)
+    exists and names the converter's three regions and the phase's own.
+    (g) the converter CLI over the sequence under four names with
+    --workers 1 and with a spawn pool of 4, on the card: equal files, wall
+    seconds and frames/s of each. No kernel of the port runs (0 / 0 / 0).
+    Every line starts "# offline [<card>, <power limit>]". Returns
+    failures."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.datasets import build_dataloader
+    from pcseqlearning_tpu_torch.models.visualizers import GeometryVisualizer
+    from pcseqlearning_tpu_torch.scene import DETECTOR_CFGS, write_waymo_tfrecord
+    from pcseqlearning_tpu_torch.tools import create_waymo_infos, propagate_segmentation_labels
+    from pcseqlearning_tpu_torch.tools import waymo_fl_eval
+    from pcseqlearning_tpu_torch.utils import profiler
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    tag = f"# offline [{gpu_line}]"
+    frames, lidars, labels = size
+    tag_dir = "waymo_processed_data_v0_5_0"
+    classes = ["Vehicle", "Pedestrian", "Cyclist"]
+    errs = []
+    for fn in kernels.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_offline_") as tmp:
+        tmp = Path(tmp)
+        raw = tmp / "raw"
+        raw.mkdir()
+        # (a) the raw sequence
+        t0 = time.perf_counter()
+        valid, nbytes = write_waymo_tfrecord(raw / "segment-smoke.tfrecord", frames, seed=0,
+                                             lidars=lidars, labels=labels)
+        log(f"{tag} (a) wrote {frames} frames ({nbytes / 1e6:.2f} MB, {min(valid)}-{max(valid)} "
+            f"first returns a frame, {labels} labels a frame) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # (b) the conversion on the card (traced) and on the CPU
+        roots = {"card": tmp / "card", "cpu": tmp / "cpu"}
+        runs = {}
+        for arm, d in roots.items():
+            argv = ["--raw_dir", str(raw), "--out_dir", str(d / tag_dir), "--workers", "1",
+                    "--device", dev.type if arm == "card" else "cpu"]
+            t0 = time.perf_counter()
+            with profiler.device_trace(tmp / "trace", enabled=arm == "card"):
+                with profiler.annotate("chip_smoke.offline.convert"):
+                    (_, timings), = create_waymo_infos.main(argv)
+            runs[arm] = (time.perf_counter() - t0, timings)
+        seq_c, seq_p = (roots[a] / tag_dir / "segment-smoke" for a in ("card", "cpu"))
+        with open(seq_c / "segment-smoke.pkl", "rb") as f:
+            infos = pickle.load(f)
+        with open(seq_p / "segment-smoke.pkl", "rb") as f:
+            infos_p = pickle.load(f)
+        if not _equal(infos, infos_p):
+            errs.append("offline (b): the card's infos differ from the CPU's")
+        n_diff = n_vals = 0
+        counts, seg_frames = [], []
+        for info in infos:
+            idx = info["point_cloud"]["sample_idx"]
+            a, b = np.load(seq_c / f"{idx:04d}.npy"), np.load(seq_p / f"{idx:04d}.npy")
+            counts.append(len(a))
+            if a.shape != b.shape:
+                errs.append(f"offline (b): frame {idx} has {a.shape} points on the card, "
+                            f"{b.shape} on the CPU")
+                continue
+            geo = [0, 1, 2, 5]  # xyz and range
+            ulp = np.spacing(np.maximum(np.abs(a[:, geo]), np.abs(b[:, geo])))
+            n_diff += int((a[:, geo] != b[:, geo]).sum())
+            n_vals += a[:, geo].size
+            if (np.abs(a[:, geo] - b[:, geo]) > ulp).any() or not np.array_equal(
+                    a[:, [3, 4, 6, 7]], b[:, [3, 4, 6, 7]]):
+                errs.append(f"offline (b): frame {idx}'s points differ by more than one ulp")
+            sc, sp = seq_c / f"{idx:04d}_seg.npy", seq_p / f"{idx:04d}_seg.npy"
+            if sc.exists() != sp.exists() or (sc.exists() and not np.array_equal(
+                    np.load(sc), np.load(sp))):
+                errs.append(f"offline (b): frame {idx}'s _seg.npy differs")
+            if sc.exists():
+                seg_frames.append(idx)
+        per_frame = {arm: {k: v / t["frames"] for k, v in t.items() if k != "frames"}
+                     for arm, (_, t) in runs.items()}
+        log(f"{tag} (b) converted {len(infos)} frames: card {runs['card'][0]:.2f} s (traced), "
+            f"CPU {runs['cpu'][0]:.2f} s; seconds a frame {json.dumps(per_frame)}; points a "
+            f"frame {counts}; _seg.npy frames {seg_frames}; xyz and range values differing "
+            f"card/CPU {n_diff} of {n_vals} (each within one float32 ulp); infos equal")
+        if not seg_frames:
+            errs.append("offline (b): no frame has a _seg.npy")
+
+        # (f) the trace of the card's conversion
+        trace = tmp / "trace" / "trace.json"
+        text = trace.read_text() if trace.exists() else ""
+        regions = ["chip_smoke.offline.convert", "create_waymo_infos.decode",
+                   "create_waymo_infos.projection", "create_waymo_infos.write"]
+        missing = [r for r in regions if f'"{r}"' not in text]
+        log(f"{tag} (f) trace {trace.name}: {len(text) / 1e6:.2f} MB, regions missing "
+            f"{missing}")
+        if not text or missing:
+            errs.append(f"offline (f): trace {'absent' if not text else 'lacks ' + str(missing)}")
+
+        # (c) propagation on the card, and on the CPU over a copy
+        shutil.copytree(roots["card"], tmp / "prop_cpu")
+        cfg_text = (repo / DETECTOR_CFGS[1]).read_text()
+        cfg_paths = {}
+        for arm, root in (("card", roots["card"]), ("cpu", tmp / "prop_cpu")):
+            cfg_paths[arm] = tmp / f"data_{arm}.yaml"
+            cfg_paths[arm].write_text(cfg_text.replace("    DATA_PATH: data/waymo\n",
+                                                       f"    DATA_PATH: '{root}'\n"))
+        t_prop = {}
+        for arm in ("card", "cpu"):
+            t0 = time.perf_counter()
+            written = propagate_segmentation_labels.main(
+                [str(cfg_paths[arm]), "--device", dev.type if arm == "card" else "cpu"])
+            t_prop[arm] = (time.perf_counter() - t0, written)
+        seq_q = tmp / "prop_cpu" / tag_dir / "segment-smoke"
+        near = []
+        n_prop = 0
+        for info in infos:
+            idx = info["point_cloud"]["sample_idx"]
+            fc, fq = seq_c / f"{idx:04d}_propseg.npy", seq_q / f"{idx:04d}_propseg.npy"
+            if fc.exists() != fq.exists():
+                errs.append(f"offline (c): frame {idx}'s _propseg.npy written by one arm only")
+                continue
+            if not fc.exists():
+                continue
+            n_prop += 1
+            a, b = np.load(fc), np.load(fq)
+            rows = np.flatnonzero((a != b).any(1))
+            if len(rows):
+                pts = np.load(seq_c / f"{idx:04d}.npy")[rows, :3]
+                dist = propagate_segmentation_labels.box_face_distance(
+                    pts, info["annos"]["gt_boxes_lidar"])
+                near += [(idx, int(r), float(x)) for r, x in zip(rows, dist)]
+                if (dist > 1e-5).any():
+                    errs.append(f"offline (c): frame {idx}: {len(rows)} points differ, some "
+                                f"farther than 1e-5 m from a box face")
+        labeled = int(sum((np.load(seq_c / f"{i['point_cloud']['sample_idx']:04d}_propseg.npy")
+                           [:, 1] > 0).sum() for i in infos
+                          if (seq_c / f"{i['point_cloud']['sample_idx']:04d}_propseg.npy")
+                          .exists()))
+        log(f"{tag} (c) propagation: card {t_prop['card'][0]:.2f} s, CPU {t_prop['cpu'][0]:.2f} "
+            f"s, wrote {t_prop['card'][1]} / {t_prop['cpu'][1]}; {labeled} points labeled over "
+            f"{n_prop} frames; points that differ (frame, row, m to a face) {near[:20]}")
+        if t_prop["card"][1] != t_prop["cpu"][1] or n_prop == 0 or labeled == 0:
+            errs.append(f"offline (c): wrote {t_prop['card'][1]} / {t_prop['cpu'][1]}, "
+                        f"{labeled} points labeled")
+
+        # (d) the dataset over the conversion, and the visualizer
+        data_cfg = cfg_from_yaml_file(str(cfg_paths["card"]), EDict()).DATA_CONFIG
+        t0 = time.perf_counter()
+        _, loader = build_dataloader(data_cfg, classes, 2, training=False)
+        batch = next(iter(loader))
+        pcr = np.asarray(data_cfg.POINT_CLOUD_RANGE, np.float32)
+        for i, info in enumerate(infos[:2]):
+            pts = np.load(seq_c / f"{i:04d}.npy")[:, :3]
+            want = pts[np.all((pts >= pcr[:3]) & (pts <= pcr[3:]), 1)]
+            got = batch["point_bxyz"][batch["point_bxyz"][:, 0] == i, 1:4]
+            # every box in the info's order, class 0 for a name not in the
+            # classes; the heading goes through the dataset's pose round trip
+            # (cos, sin, arctan2), a few ulps
+            an = info["annos"]
+            n = len(an["name"])
+            gb = batch["gt_boxes"][i]
+            label = [classes.index(x) + 1 if x in classes else 0 for x in an["name"]]
+            turn = np.angle(np.exp(1j * (gb[:n, 6].astype(np.float64)
+                                         - an["gt_boxes_lidar"][:, 6])))
+            if not (np.array_equal(got, want) and np.array_equal(gb[:n, :6],
+                                                                 an["gt_boxes_lidar"][:, :6])
+                    and np.abs(turn).max(initial=0) < 1e-6 and list(gb[:n, 7]) == label
+                    and not gb[n:].any()):
+                errs.append(f"offline (d): sample {i}'s points or boxes differ from the "
+                            f"conversion's")
+        vis_cfg = cfg_from_yaml_file(
+            str(repo / "tools/cfgs/visualizers/waymo/registration/voxel_visualizer.yaml"),
+            EDict()).VISUALIZER
+        vis_cfg.SAVE_DIR = str(tmp / "vis")
+        dev_batch = {k: (torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray)
+                         and v.dtype != object else v) for k, v in batch.items()}
+        dev_batch["point_fxyz"] = dev_batch["point_bxyz"]
+        GeometryVisualizer(vis_cfg)(dev_batch)
+        geoms = sorted((tmp / "vis").glob("*.geom.pkl"))
+        segs = []
+        if geoms:
+            with open(geoms[0], "rb") as f:
+                segs = pickle.load(f)
+        n_boxes = int(((batch["gt_boxes"][..., 3:6] ** 2).sum(-1) > 1e-1).sum())
+        shapes = []
+        for seg in segs:
+            arr = seg["xyz"] if "xyz" in seg else seg["corners"]
+            shapes.append((seg["type"], seg["name"], list(arr.shape), str(arr.dtype)))
+        log(f"{tag} (d) dataset: {len(batch['point_bxyz'])} points, {n_boxes} boxes in a batch "
+            f"of 2; visualizer {len(geoms)} file(s), segments {shapes}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        want = [("point_cloud", "point_fxyz", [len(batch["point_bxyz"]), 3], "float32"),
+                ("boxes", "gt_boxes", [n_boxes, 8, 3], "float32")]
+        if shapes != want:
+            errs.append(f"offline (d): visualizer segments {shapes}")
+
+        # (e) feature leakage of jittered GT boxes, on the card and the CPU
+        rng = np.random.RandomState(1)
+        preds = []
+        for info in infos:
+            an = info["annos"]
+            keep = rng.rand(len(an["name"])) >= 0.1
+            b = an["gt_boxes_lidar"].astype(np.float64).copy()
+            b[:, :3] += rng.normal(0, 0.1, (len(b), 3))
+            b[:, 3:6] *= 1 + rng.normal(0, 0.05, (len(b), 3))
+            b[:, 6] += rng.normal(0, 0.05, len(b))
+            preds.append(dict(frame_id=info["frame_id"], name=an["name"][keep],
+                              boxes_lidar=b[keep].astype(np.float32),
+                              score=rng.rand(int(keep.sum())).astype(np.float32)))
+        pred_pkl, gt_pkl = tmp / "preds.pkl", tmp / "gt_infos.pkl"
+        pred_pkl.write_bytes(pickle.dumps(preds))
+        gt_pkl.write_bytes(pickle.dumps(infos))
+        stats = {}
+        for arm in ("card", "cpu"):
+            t0 = time.perf_counter()
+            stats[arm] = waymo_fl_eval.main(["--pred_infos", str(pred_pkl), "--gt_infos",
+                                             str(gt_pkl), "--device",
+                                             dev.type if arm == "card" else "cpu"])
+            stats[arm + "_s"] = time.perf_counter() - t0
+        worst = 0.0
+        for cls, by_lvl in stats["cpu"].items():
+            for lvl, s in by_lvl.items():
+                c = stats["card"][cls].get(lvl)
+                if c is None or c["n"] != s["n"]:
+                    errs.append(f"offline (e): {cls} level {lvl} counts differ")
+                    continue
+                worst = max([worst] + [abs(c[k] - s[k]) for k in s if k != "n"])
+        log(f"{tag} (e) leakage: card {stats['card_s']:.2f} s, CPU {stats['cpu_s']:.2f} s; "
+            f"largest card/CPU difference {worst:.3g}; card {json.dumps(stats['card'])}")
+        if worst > 1e-6 or set(stats["card"]) != set(stats["cpu"]) or not any(
+                stats["cpu"].values()):
+            errs.append(f"offline (e): statistics differ by {worst:.3g}")
+        # (g) the converter's spawn pool against one process, on the card:
+        # the sequence under four names
+        pool_raw = tmp / "pool_raw"
+        pool_raw.mkdir()
+        for k in range(4):
+            os.link(raw / "segment-smoke.tfrecord", pool_raw / f"segment-{k}.tfrecord")
+        walls, outs = {}, {}
+        for workers in ("1", "4"):
+            out = tmp / f"pool_{workers}"
+            t0 = time.perf_counter()
+            res = create_waymo_infos.main(["--raw_dir", str(pool_raw), "--out_dir", str(out),
+                                           "--workers", workers, "--device", dev.type])
+            walls[workers] = (time.perf_counter() - t0,
+                              sum(sum(v for k, v in t.items() if k != "frames") for _, t in res))
+            outs[workers] = {p.relative_to(out): p.read_bytes() for p in sorted(out.rglob("*"))
+                             if p.is_file()}
+        same = outs["1"] == outs["4"]
+        n = 4 * len(infos)
+        log(f"{tag} (g) {n} frames in 4 sequences: one process {walls['1'][0]:.2f} s "
+            f"({n / walls['1'][0]:.2f} frames/s), a spawn pool of 4 {walls['4'][0]:.2f} s "
+            f"({n / walls['4'][0]:.2f} frames/s; its workers' decode, projection and write "
+            f"{walls['4'][1]:.2f} s); outputs equal: {same}")
+        if not same:
+            errs.append("offline (g): the pool's files differ from one process's")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    log(f"{tag} kernel launches in phase 14 {json.dumps(launches)}")
+    if any(launches.values()):
+        errs.append(f"phase 14 launched a kernel of the extraction path: {launches}")
     return errs
 
 
@@ -2416,7 +2752,6 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts=
     Returns failures."""
     import numpy as np
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
     from pcseqlearning_tpu_torch.models import build_network
@@ -2595,10 +2930,8 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts=
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with FlopCounterMode(display=False) as counter:
-            state, losses = step(state, dev_batch)
+        state, losses, flops, analytic = counted_step(step, state, dev_batch)
         first_s = time.perf_counter() - t0
-        flops = float(counter.get_total_flops())
         loss_seq, durs, two = [float(losses[key])], [], [losses]
         t_prev = time.perf_counter()
         for i in range(steps):
@@ -2646,7 +2979,8 @@ def anchor_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts=
                    voxel_cap=b_cap, steps=steps, first_step_s=first_s, step_s=durs,
                    steps_per_s=1.0 / dt, peak_gb=peak_gb, losses=loss_seq,
                    flops_per_step=flops, mfu=flops / dt / PEAK_FP32_FLOPS if dev.type == "cuda"
-                   else None, mfu_peak="67 TFLOP/s float32, TF32 off", predict_s=predict_s,
+                   else None, mfu_peak="67 TFLOP/s float32, TF32 off",
+                   **flop_fields(flops, analytic), predict_s=predict_s,
                    nms_calls=meter.calls, nms_s=meter.seconds,
                    nms_peak_gb=meter.peak_bytes / 1e9, kept_boxes=kept,
                    kept_boxes_finite=finite_boxes, two_steps_repeat_bit_for_bit=repeats,
@@ -2741,7 +3075,6 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abc
     Returns failures."""
     import numpy as np
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
     from pcseqlearning_tpu_torch.models import build_network
@@ -2929,10 +3262,8 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abc
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with FlopCounterMode(display=False) as counter:
-            state, losses = step(state, dev_batch)
+        state, losses, flops, analytic = counted_step(step, state, dev_batch)
         first_s = time.perf_counter() - t0
-        flops = float(counter.get_total_flops())
         loss_seq, durs, two = [float(losses["total_loss"])], [], [losses]
         t_prev = time.perf_counter()
         for i in range(steps):
@@ -2991,7 +3322,8 @@ def pv_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abc
                    first_step_s=first_s, step_s=durs, steps_per_s=1.0 / dt, peak_gb=peak_gb,
                    losses=loss_seq, flops_per_step=flops,
                    mfu=flops / dt / PEAK_FP32_FLOPS if dev.type == "cuda" else None,
-                   mfu_peak="67 TFLOP/s float32, TF32 off", metered_step_s=metered_s,
+                   mfu_peak="67 TFLOP/s float32, TF32 off", **flop_fields(flops, analytic),
+                   metered_step_s=metered_s,
                    fps_s=fps_m.seconds, fps_calls=fps_m.calls,
                    pfe_s=pfe.seconds if pfe else None, pfe_calls=pfe.calls if pfe else 0,
                    roiaware_s=pool_m.seconds, roiaware_calls=pool_m.calls,
@@ -3325,7 +3657,7 @@ def last_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="a
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, losses = step(state, dev_batch)
+        state, losses, flops, analytic = counted_step(step, state, dev_batch)
         first_s = time.perf_counter() - t0
         loss_seq, durs, two = [float(losses[key])], [], [losses]
         t_prev = time.perf_counter()
@@ -3391,6 +3723,7 @@ def last_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="a
         rec = dict(model=model, range_m=cell[0], points=[cell[2], cell[1]], voxel_cap=cell[3],
                    point_cap=cell[5], images=cell[4], steps=b_steps, first_step_s=first_s,
                    step_s=durs, steps_per_s=1.0 / dt, peak_gb=peak_gb, losses=loss_seq,
+                   flops_per_step=flops, **flop_fields(flops, analytic),
                    metered_step_s=metered_s, predict_s=predict_s, kept_boxes=kept,
                    decoded_rows=list(boxes.shape[:2]), decoded_rows_finite=finite_boxes,
                    two_steps_repeat_bit_for_bit=repeats,
@@ -3546,6 +3879,12 @@ def main():
         last_sizes = (dict(tiny, pointrcnn=(6.4, 2_500, 2, 30_000, None, None)), tiny, 2,
                       cli_size)
         data_size = cli_size
+        # phase 14: 4 frames of a TOP lidar 8 x 64 and four 4 x 16, 8 labels
+        offline_size = (4, (("TOP", 8, 64, (-0.3, 0.05), True, (1.4, 0.0, 2.2), 0.015, 0.9),
+                            *[(n, 4, 16, (-1.5, 0.5), False, (3.0, y, 1.0), yaw, 0.4)
+                              for n, y, yaw in (("FRONT", 0.0, 0.0), ("SIDE_LEFT", 1.0, 1.57),
+                                                ("SIDE_RIGHT", -1.0, -1.57),
+                                                ("REAR", 0.0, 3.14))]), 8)
         dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
             "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
             "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
@@ -3596,6 +3935,11 @@ def main():
         last_sizes = (last_a, last_b, 4, pv_sizes[2])
         # phase 13: phase 8's sequences (8 train frames, 4 steps at batch 2)
         data_size = (8, 160_000, 4, 2)
+        # phase 14: Waymo's sensor geometry and 60 labels a frame, 10 frames
+        # (a segment has ~198; cut for the run's time)
+        from pcseqlearning_tpu_torch.scene import WAYMO_LIDARS
+
+        offline_size = (10, WAYMO_LIDARS, 60)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -3844,7 +4188,9 @@ def main():
                 ("# phase 9: ", lambda: dist_phase(repo, dev, gpu_line, kernels, rehearse,
                                                    dist_sizes))],
         after=[("# data: phase 13 ", lambda: data_phase(repo, dev, gpu_line, kernels, rehearse,
-                                                        data_size))])
+                                                        data_size)),
+               ("# offline: phase 14 ", lambda: offline_phase(repo, dev, gpu_line, kernels,
+                                                              rehearse, offline_size))])
 
     for r in rows:
         log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "

@@ -26,11 +26,16 @@ inside the detector's range under any global rotation and scaling, so each
 frame keeps all its boxes and points, each box on a heatmap cell of its own
 (the data-parallel checks need equal positives and no invalid point per
 sample).
+``write_waymo_tfrecord`` writes raw Waymo frames (range images,
+calibrations, labels, segmentation labels) as a TFRecord, through the
+port's own wire-format writer, for the offline converter.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -342,3 +347,140 @@ def caddn_camera_y(extent, voxel_y, voxel_cap, standoff=12.0):
     nx = int(round(2 * extent / voxel_y))
     rows = -(-voxel_cap // nx)
     return -extent + rows * voxel_y + standoff
+
+
+# Waymo's five lidars: name, rows, columns, inclination range (rad), whether
+# the calibration lists per-beam inclinations (TOP) or only the range, the
+# mount point (m) and yaw (rad) in the vehicle frame, and the share of
+# pixels with a first return
+WAYMO_LIDARS = (
+    ("TOP", 64, 2650, (-0.3075, 0.0436), True, (1.43, 0.0, 2.184), 0.0148, 0.9),
+    ("FRONT", 200, 600, (-1.5708, 0.5236), False, (4.07, 0.0, 0.691), 0.0, 0.035),
+    ("SIDE_LEFT", 200, 600, (-1.5708, 0.5236), False, (3.245, 1.025, 0.981), math.pi / 2,
+     0.035),
+    ("SIDE_RIGHT", 200, 600, (-1.5708, 0.5236), False, (3.245, -1.025, 0.981),
+     -math.pi / 2, 0.035),
+    ("REAR", 200, 600, (-1.5708, 0.5236), False, (-1.154, 0.0, 0.464), math.pi, 0.035),
+)
+# per label type (vehicle, pedestrian, sign, cyclist): its share and box
+# extents (length, width, height) in m
+_LABEL_TYPES = ((1, 0.5, (4.5, 2.0, 1.7)), (2, 0.3, (0.9, 0.8, 1.75)),
+                (3, 0.1, (0.3, 0.6, 0.8)), (4, 0.1, (1.8, 0.7, 1.7)))
+
+
+def _yaw_transform(xyz, yaw):
+    t = np.eye(4)
+    c, s = math.cos(yaw), math.sin(yaw)
+    t[:3, :3] = [[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]
+    t[:3, 3] = xyz
+    return t
+
+
+def _matrix(cls, arr):
+    from .datasets.waymo_protos import MatrixShape
+
+    return zlib.compress(cls(data=arr.reshape(-1), shape=MatrixShape(dims=list(arr.shape)))
+                         .encode())
+
+
+def write_waymo_tfrecord(path, frames, seed=0, lidars=WAYMO_LIDARS, labels=60,
+                         seg_frames=None):
+    """Write ``frames`` synthetic Waymo frames to the TFRecord ``path``, as
+    the public dataset lays them out, through the port's wire-format writer
+    (``datasets.waymo_protos``), from ``np.random.RandomState(seed)``:
+
+    - per lidar of ``lidars`` (``WAYMO_LIDARS``: TOP 64 x 2,650 with
+      per-beam inclinations, four short-range lidars 200 x 600 with an
+      inclination range, yawed extrinsics), a ZLIB MatrixFloat first return
+      [H, W, 4] (range, intensity, elongation, no-label-zone; range -1 where
+      there is no return; TOP's downward beams see a ground plane) and a
+      sparse second return;
+    - ``labels`` boxes a frame, each around a TOP return of that frame, of
+      the four types (the same id and type for index j in every frame),
+      with difficulty levels and point counts;
+    - on the frames of ``seg_frames`` (every 5th by default), TOP's ZLIB
+      MatrixInt32 segmentation labels [H, W, 2] (instance 0-60, semantic
+      1-22 on returns);
+    - a pose that drives forward and turns.
+
+    Returns (valid first-return pixels per frame, bytes written)."""
+    from .datasets.tfrecord_io import write_tfrecord
+    from .datasets.waymo_protos import (Box, Context, Frame, Label, Laser, LaserCalibration,
+                                        LaserName, MatrixFloat, MatrixInt32, RangeImage,
+                                        Transform)
+
+    rng = np.random.RandomState(seed)
+    seg_frames = set(range(0, frames, 5) if seg_frames is None else seg_frames)
+    shares = np.array([t[1] for t in _LABEL_TYPES])
+    kinds = rng.choice(len(_LABEL_TYPES), labels, p=shares / shares.sum())
+    kinds[:len(_LABEL_TYPES)] = np.arange(len(_LABEL_TYPES))[:labels]  # every type present
+    cals = []
+    for name, rows, cols, (lo, hi), per_beam, mount, yaw, _ in lidars:
+        ex = _yaw_transform(mount, yaw)
+        incl = (np.sort(lo + (hi - lo) * (np.arange(rows) + 0.5 + rng.uniform(-0.3, 0.3, rows))
+                        / rows) if per_beam else None)
+        cals.append((incl, ex, LaserCalibration(
+            name=getattr(LaserName, name), beam_inclination_min=lo, beam_inclination_max=hi,
+            extrinsic=Transform(transform=ex.reshape(-1)),
+            **({"beam_inclinations": incl} if per_beam else {}))))
+    payloads, valid_counts = [], []
+    for f in range(frames):
+        lasers, n_valid, anchors = [], 0, None
+        for (name, rows, cols, (lo, hi), per_beam, mount, yaw, share), (incl, ex, _) in zip(
+                lidars, cals):
+            beams = incl if incl is not None else lo + (hi - lo) * (np.arange(rows) + 0.5) / rows
+            row_incl = beams[::-1][:, None]
+            valid = rng.rand(rows, cols) < share
+            ground = np.clip(mount[2] / np.sin(np.maximum(-row_incl, 1e-3)), 0.5, 75.0)
+            far = rng.uniform(5.0, 75.0, (rows, cols))
+            rng_m = np.where(row_incl < -0.02, ground * (1 + 0.02 * rng.randn(rows, cols)), far)
+            t = np.zeros((rows, cols, 4), np.float32)
+            t[..., 0] = np.where(valid, rng_m, -1.0)
+            t[..., 1] = np.where(valid, rng.rand(rows, cols), 0.0)
+            t[..., 2] = np.where(valid, rng.rand(rows, cols) * 1.5, 0.0)
+            t[..., 3] = np.where(valid, rng.rand(rows, cols) < 0.02, 0.0)
+            second = np.full((rows, cols, 4), -1.0, np.float32)
+            sparse = valid & (rng.rand(rows, cols) < 0.02)
+            second[sparse, 0] = t[sparse, 0] + rng.uniform(0.5, 5.0, int(sparse.sum()))
+            second[sparse, 1:3] = 0.1
+            ri1 = dict(range_image_compressed=_matrix(MatrixFloat, t))
+            if name == "TOP":
+                if f in seg_frames:
+                    seg = np.zeros((rows, cols, 2), np.int32)
+                    seg[..., 0] = np.where(valid, rng.randint(0, labels + 1, (rows, cols)), 0)
+                    seg[..., 1] = np.where(valid, rng.randint(1, 23, (rows, cols)), 0)
+                    ri1["segmentation_label_compressed"] = _matrix(MatrixInt32, seg)
+                # label anchors: TOP returns, in the vehicle frame
+                r, c = np.nonzero(valid)
+                pick = rng.choice(len(r), labels, replace=False)
+                r, c = r[pick], c[pick]
+                az = (1.0 - 2.0 * (c + 0.5) / cols) * np.pi - math.atan2(ex[1, 0], ex[0, 0])
+                rr, inc = t[r, c, 0].astype(np.float64), row_incl[r, 0]
+                p = np.stack([rr * np.cos(inc) * np.cos(az), rr * np.cos(inc) * np.sin(az),
+                              rr * np.sin(inc)], -1)
+                anchors = p @ ex[:3, :3].T + ex[:3, 3]
+            lasers.append(Laser(name=getattr(LaserName, name), ri_return1=RangeImage(**ri1),
+                                ri_return2=RangeImage(
+                                    range_image_compressed=_matrix(MatrixFloat, second))))
+            n_valid += int(valid.sum())
+        boxes = []
+        for j in range(labels):
+            typ, _, (ln, wd, ht) = _LABEL_TYPES[kinds[j]]
+            cx, cy, cz = anchors[j] + rng.uniform(-0.2, 0.2, 3) if anchors is not None else (
+                0.0, 0.0, 0.0)
+            boxes.append(Label(
+                box=Box(center_x=cx, center_y=cy, center_z=cz, length=ln, width=wd, height=ht,
+                        heading=rng.uniform(-np.pi, np.pi)),
+                type=typ, id=f"obj_{j:03d}", detection_difficulty_level=int(rng.randint(1, 3)),
+                tracking_difficulty_level=int(rng.randint(1, 3)),
+                num_lidar_points_in_box=int(rng.randint(1, 500))))
+        frame = Frame(
+            context=Context(name=Path(path).stem, laser_calibrations=[c for *_, c in cals]),
+            timestamp_micros=1_550_000_000_000_000 + 100_000 * f,
+            pose=Transform(transform=_yaw_transform((1.5 * f, 0.05 * f * f, 0.0), 0.01 * f)
+                           .reshape(-1)),
+            lasers=lasers, laser_labels=boxes)
+        payloads.append(frame.encode())
+        valid_counts.append(n_valid)
+    write_tfrecord(path, payloads)
+    return valid_counts, sum(len(p) + 16 for p in payloads)

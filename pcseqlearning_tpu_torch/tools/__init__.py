@@ -1,1 +1,3 @@
-"""Measurement scripts of the port, run on the card."""
+"""The port's tool entry points: the offline Waymo conversion and its
+follow-ups, the database builders, and measurement scripts run on the
+card."""

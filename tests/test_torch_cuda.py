@@ -696,3 +696,48 @@ def test_cuda_gt_databases_equal_cpu(cuda_device, tmp_path):
     assert len(out["cpu"][1]) == 48 and len(out["cpu"][3]) > 0
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a == b
+
+
+@pytest.mark.cuda
+def test_cuda_waymo_conversion_and_propagation_equal_cpu(cuda_device, tmp_path):
+    """A 2-frame TFRecord (TOP 32 x 512 with per-beam inclinations and
+    segmentation labels on frame 0, four 16 x 64 lidars with a range)
+    converted on the card and on the CPU: equal infos, _seg.npy files and
+    point counts, xyz and range within one float32 ulp; then the
+    propagation of the card's conversion on the card and, over a copy, on
+    the CPU: equal _propseg.npy files but for points within 1e-5 m of a box
+    face (float32 rounding of the membership test)."""
+    import pickle
+    import shutil
+
+    from pcseqlearning_tpu_torch.scene import WAYMO_LIDARS, write_waymo_tfrecord
+    from pcseqlearning_tpu_torch.tools import propagate_segmentation_labels as psl
+    from pcseqlearning_tpu_torch.tools.create_waymo_infos import process_single_sequence
+
+    lidars = [(n, 32 if n == "TOP" else 16, 512 if n == "TOP" else 64, *rest)
+              for n, _, _, *rest in WAYMO_LIDARS]
+    raw = tmp_path / "seg-cuda.tfrecord"
+    write_waymo_tfrecord(raw, 2, seed=5, lidars=lidars, labels=20, seg_frames=[0])
+    infos = {dev: process_single_sequence(str(raw), str(tmp_path / dev), device=dev)
+             for dev in ("cuda", "cpu")}
+    assert pickle.dumps(infos["cuda"]) == pickle.dumps(infos["cpu"])
+    seq = {dev: tmp_path / dev / "seg-cuda" for dev in ("cuda", "cpu")}
+    for idx in range(2):
+        a, b = (np.load(seq[d] / f"{idx:04d}.npy") for d in ("cuda", "cpu"))
+        assert a.shape == b.shape
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+        assert (np.abs(a - b) <= ulp).all()
+        assert np.array_equal(a[:, [3, 4]], b[:, [3, 4]])
+        assert (seq["cuda"] / f"{idx:04d}_seg.npy").exists() == (idx == 0)
+    assert np.array_equal(np.load(seq["cuda"] / "0000_seg.npy"),
+                          np.load(seq["cpu"] / "0000_seg.npy"))
+    shutil.copytree(seq["cuda"], tmp_path / "prop_cpu")
+    assert psl.process_sequence(seq["cuda"], infos["cuda"], device="cuda") == 1
+    assert psl.process_sequence(tmp_path / "prop_cpu", infos["cuda"], device="cpu") == 1
+    a, b = np.load(seq["cuda"] / "0001_propseg.npy"), np.load(tmp_path / "prop_cpu" /
+                                                              "0001_propseg.npy")
+    rows = np.flatnonzero((a != b).any(1))
+    pts = np.load(seq["cuda"] / "0001.npy")[rows, :3]
+    assert (psl.box_face_distance(pts, infos["cuda"][1]["annos"]["gt_boxes_lidar"])
+            <= 1e-5).all()
+    assert (a[:, 1] > 0).any()
