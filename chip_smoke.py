@@ -198,12 +198,12 @@ host cost.
                  sst_centerpoint.yaml
              Every line starts "# last detectors [<card>, <power limit>]";
              no kernel of the port runs (launches 0 / 0 / 0).
-             Phases 10(a), 11(a) and 12(a), mostly the CPU's float64 steps,
-             run in a second process (``chip_smoke.py --card-vs-cpu``, on
-             the same card, two CPU threads left) that starts before phase
-             8 and runs beside phases 8, 9, 10-12 (b) and (c), 13 and 14; its
-             output is printed after phase 14, and its failure fails the
-             run. The times of those phases are taken beside it. The two
+             Phases 10(a), 11(a), 12(a) and 15(a), mostly the CPU's float64
+             steps, run in a second process (``chip_smoke.py --card-vs-cpu``,
+             on the same card, two CPU threads left) that starts before phase
+             8 and runs beside phases 8, 9, 10-12 (b) and (c), 13, 14 and
+             15(b)-(d); its output is printed after phase 15, and its
+             failure fails the run. The times of those phases are taken beside it. The two
              take turns on the card (``card_alone``) for the second
              process's card steps and all of phase 12 (b) and (c).
  13. data    the detector's training-data path (see data_phase), over phase
@@ -250,6 +250,27 @@ host cost.
              print beside each first step's FlopCounterMode count (``mfu``'s
              numerator) the port's utils.flops.analytic_flops, which is the
              JAX package's definition, and their ratio.
+ 15. zoo     the JAX package's model zoo that no config names, through
+             build_network (see zoo_phase): centerpoint.yaml with VFE.NAME
+             DynamicVFE, PlaneFitting (HybridVFE is the same class) and
+             RepsurfDynamicVFE; pointrcnn.yaml with BACKBONE_3D.NAME KPConv,
+             PointConvNet, VolumeConvNet, PointGroupNet, PointPlaneNet and
+             PointNet2RepSurf; full widths:
+             (a) card against CPU in float64, one train step each (the VFEs
+                 at phase 7(a)'s cell, the point backbones at phase 12(a)'s):
+                 losses within 1e-8 relative, every neighbour table, kNN
+                 table and FPS pick equal; it runs in the second process,
+                 after 12(a)
+             (b) 2 train steps each at full width (the VFEs at
+                 bench_detector's cell, the point backbones on 16,384 points a
+                 sample): steps/s, peak memory, no kernel launched
+             (c) ImplicitReconstructionHead and PointSequenceReconstructionHead
+                 on KPConvNet's features at n = 32,768: pair_min's streamed
+                 mode (P = 884,736, Q = 32,768) launched and held bit for bit
+                 to its plain version; its row joins the kernel table
+             (d) the graph, sampler and volume registries and
+                 primitive_fitting on a bench frame, card against CPU
+             Every line starts "# zoo [<card>, <power limit>]".
 The last two lines are the kernel table as JSON and the contract's
 {"ok": true, "device": ...} line. Needs no network and imports no JAX.
 
@@ -444,6 +465,28 @@ def device_ms(fn, symbol, reps):
 def kernel_times(fn, symbol, reps):
     """(device_ms, call_ms) of one wrapper call; see the module docstring."""
     return device_ms(fn, symbol, reps), cuda_time_ms(fn, reps)
+
+
+def idle_call_ms(fn, reps):
+    """Device ms of one ``fn()`` started on an idle card: CUDA events
+    recorded on the stream around each call, a synchronize before each;
+    the mean over ``reps`` calls after one warm-up. Host clock in a
+    rehearsal."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return cuda_time_ms(fn, 1, warmup=0)
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def whole_call_ms(fn, reps):
@@ -3750,6 +3793,364 @@ def last_detectors_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="a
     return errs
 
 
+# phase 15: the model zoo that no config names, as (config, section, module)
+ZOO_SWAPS = (("centerpoint", "VFE", "DynamicVFE"), ("centerpoint", "VFE", "PlaneFitting"),
+             ("centerpoint", "VFE", "RepsurfDynamicVFE"),
+             ("pointrcnn", "BACKBONE_3D", "KPConv"),
+             *[("pointrcnn", "BACKBONE_3D", v) for v in ("PointConvNet", "VolumeConvNet",
+                                                          "PointGroupNet", "PointPlaneNet",
+                                                          "PointNet2RepSurf")])
+ZOO_LOSS = {"centerpoint": "center_loss", "pointrcnn": "total_loss"}
+
+
+class ZooRecorder:
+    """Keeps the results of every call of the decisions a zoo model takes
+    (hash-grid radius neighbours, brute-force kNN, FPS picks), in call
+    order, on the host."""
+
+    def __init__(self):
+        import torch
+
+        from pcseqlearning_tpu_torch.ops import hash_graph, sampling
+
+        self.calls = []
+        self.meters = [CallMeter(mod, name, torch.device("cpu"),
+                                 result=lambda out, n=name: self.calls.append((n, _host(out))))
+                       for mod, name in ((hash_graph, "radius_neighbors"),
+                                         (sampling, "knn_bruteforce"),
+                                         (sampling, "farthest_point_sample"))]
+
+    def restore(self):
+        for m in self.meters:
+            m.restore()
+
+
+def _host(out):
+    """A decision's indices on the host (with its mask where it has one)."""
+    if isinstance(out, tuple):
+        idx = out[0].cpu()
+        return idx if len(out) < 3 else (idx, out[2].cpu())
+    return out.cpu()
+
+
+def _same_decisions(a, b):
+    """Equal call sequences, each call's indices equal (where masked, where
+    the mask holds)."""
+    if [n for n, _ in a] != [n for n, _ in b]:
+        return False
+    for (_, x), (_, y) in zip(a, b):
+        if isinstance(x, tuple):
+            if not torch_equal(x[1], y[1]) or not torch_equal(x[0][x[1]], y[0][y[1]]):
+                return False
+        elif not torch_equal(x, y):
+            return False
+    return True
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def zoo_phase(repo, dev, gpu_line, kernels, rehearse, sizes, parts="abcd", out=None):
+    """Phase 15: the JAX package's model zoo that no config names, through
+    ``build_network``: centerpoint.yaml with VFE.NAME DynamicVFE,
+    PlaneFitting (HybridVFE is the same class) and RepsurfDynamicVFE;
+    pointrcnn.yaml with BACKBONE_3D.NAME KPConv and each GraphConvNet
+    variant; each module at its defaults (full widths), TF32 off and cuDNN
+    deterministic.
+    (a) Card against CPU in float64, one train step of each of those nine
+    models from the same seeded weights: DynamicVFE and PlaneFitting at
+    phase 7(a)'s cell, RepsurfDynamicVFE and the point backbones at phase
+    12(a)'s (+-6.4 m, 2 x 2,500 points; cut for the CPU's time): losses
+    within 1e-8 relative, and every hash-grid neighbour table, kNN table and
+    FPS pick of the step equal.
+    (b) Full width, 2 train steps each: the VFEs at bench_detector's cell,
+    the point backbones on the first POINT_CAP (16,384) points of each of
+    its 2 samples; steps/s (the second step), peak memory, the losses
+    (finite), the three kernels' launches (none: no kernel on these paths).
+    (c) ImplicitReconstructionHead and PointSequenceReconstructionHead
+    (latent widths 128, 64) on KPConvNet's point features at (b)'s width (n
+    = 32,768 points: P = 884,736 samples, Q = 32,768 rays), forward, loss
+    and backward: pair_min's streamed mode launched at least once, that
+    call held bit for bit to the tiled ``pair_min_plain`` on the same
+    inputs, and its device and call times, bound and plain time (written
+    to ``out['row']`` for the kernel table; no library call computes it at
+    this shape).
+    (d) build_graph (RadiusGraph, KNNGraph, KNNGraphV2, VoxelGraph,
+    VolumeGraph), build_sampler (FPS, Grid, VoxelCenter, Hybrid, Volume),
+    build_volume (PCAVolume) and primitive_fitting once each on one bench
+    frame (90,000 points) on the card and on the CPU: equal edge lists,
+    masks, picks, voxel tables, iteration counts (the kNN graphs on the CPU
+    for the first 4,096 queries against the whole frame, for time;
+    VolumeGraph's weights, which follow float32 eigenvectors, printed).
+    Every line starts "# zoo [<card>, <power limit>]". Returns failures."""
+    import numpy as np
+    import torch
+
+    from pcseqlearning_tpu_torch.config import cfg_from_yaml_file
+    from pcseqlearning_tpu_torch.models import build_network
+    from pcseqlearning_tpu_torch.models import extra_heads as teh
+    from pcseqlearning_tpu_torch.ops import pair_min as pm_mod
+    from pcseqlearning_tpu_torch.parallel.train_step import (_flatten_local, init_train_state,
+                                                             make_train_step)
+    from pcseqlearning_tpu_torch.scene import bench_detector_batch
+    from pcseqlearning_tpu_torch.utils.edict import EDict
+
+    tag = f"# zoo [{gpu_line}]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cells_a, cells_b, frame = sizes
+    cfgs = {m: cfg_from_yaml_file(str(repo / f"tools/cfgs/waymo_models/{m}.yaml"), EDict())
+            for m in ZOO_LOSS}
+    errs = []
+
+    def setup(name, section, module, cell):
+        """(model cfg, runtime, dense batch) of ``cell`` = (extent, points,
+        batch, cap, point cap)."""
+        extent, points, batch_size, cap, point_cap = cell
+        model = EDict(dict(cfgs[name].MODEL, **{section: {"NAME": module}}))
+        runtime = dict(data_cfg={"POINT_CLOUD_RANGE": [-extent, -extent, -2.0, extent, extent,
+                                                       4.0], "VOXEL_SIZE": [0.1, 0.1, 0.15]},
+                       class_names=list(cfgs[name].CLASS_NAMES), voxel_cap=cap)
+        batch = bench_detector_batch(batch_size, points, 70.0 if extent > 70 else extent - 0.5)
+        if point_cap:
+            for k in ("points", "feats", "valid"):
+                batch[k] = np.ascontiguousarray(batch[k][:, :point_cap])
+        return model, runtime, batch
+
+    def flat(batch, device, dtype=torch.float32):
+        f = _flatten_local(**{k: torch.as_tensor(batch[k]).to(device)
+                              for k in ("points", "feats", "valid", "gt_boxes")})
+        return {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+                for k, v in f.items()}
+
+    # ---- (a) card against CPU, float64
+    for name, section, module in (z for z in ZOO_SWAPS if "a" in parts):
+        # RepsurfDynamicVFE's kNN over every point of a sample is a float64
+        # stable sort of [40,000, 40,000] on the CPU at the VFE cell (66 s,
+        # measured on the CPU of an H100 host): it takes the point backbones' cell
+        small = section != "VFE" or module == "RepsurfDynamicVFE"
+        cell = cells_a["point" if small else "vfe"]
+        model, runtime, batch = setup(name, section, module, cell)
+
+        def one_step(device):
+            net = build_network(model, runtime, device=device).to(torch.float64)
+            net.train()
+            rec = ZooRecorder()
+            try:
+                bd = net(flat(batch, device, torch.float64))
+            finally:
+                rec.restore()
+            bd["losses"][ZOO_LOSS[name]].backward()
+            return {k: float(v.detach()) for k, v in bd["losses"].items()}, rec.calls
+
+        with card_alone(f"15(a) {module}"):
+            t0 = time.perf_counter()
+            card = one_step(dev)
+            t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = one_step(torch.device("cpu"))
+        t_cpu = time.perf_counter() - t0
+        loss_err = max(abs(card[0][k] - v) / max(abs(v), 1e-12) for k, v in cpu[0].items())
+        same = _same_decisions(card[1], cpu[1])
+        log(f"{tag} (a) card vs cpu, float64: {json.dumps(dict(model=name, module=module, range_m=cell[0], points=[cell[2], cell[4] or cell[1]], loss_rel_err=loss_err, losses=cpu[0], decisions=Counter(n for n, _ in cpu[1]), decisions_equal=same, seconds_card=t_card, seconds_cpu=t_cpu))}")
+        if not (loss_err <= 1e-8 and same and set(card[0]) == set(cpu[0])):
+            errs.append(f"15(a) {module}: losses {loss_err:.2e} (1e-8), decisions equal {same}")
+
+    # ---- (b) full width, two train steps each
+    if "b" in parts:
+        for fn in kernels.values():
+            fn.launches = 0
+        for name, section, module in ZOO_SWAPS:
+            cell = cells_b["vfe" if section == "VFE" else "point"]
+            model, runtime, batch = setup(name, section, module, cell)
+            dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            step = make_train_step(loss_key=ZOO_LOSS[name], device=dev)
+            state = init_train_state(build_network(model, runtime, device=dev), device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            durs, losses = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                state, ls = step(state, dev_batch)
+                losses.append(float(ls[ZOO_LOSS[name]]))
+                durs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+            log(f"{tag} (b) {json.dumps(dict(model=name, module=module, range_m=cell[0], points=[cell[2], cell[4] or cell[1]], voxel_cap=cell[3], step_s=durs, steps_per_s=1.0 / durs[-1], peak_gb=peak, losses=losses))}")
+            if not all(np.isfinite(losses)):
+                errs.append(f"15(b) {module}: losses {losses} not finite")
+            del state, dev_batch
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        log(f"{tag} (b): kernel launches {json.dumps(launches)}")
+        if any(launches.values()):
+            errs.append(f"15(b) launched a kernel: {launches}")
+
+    # ---- (c) the reconstruction heads on KPConvNet's features, at (b)'s width
+    if "c" in parts:
+        model, runtime, batch = setup("pointrcnn", "BACKBONE_3D", "KPConv", cells_b["point"])
+        net = build_network(model, runtime, device=dev)
+        net.train()
+        bd = net.backbone_3d(flat(batch, dev))
+        feats = bd["point_features"].detach()
+        n = feats.shape[0]
+        gen = torch.Generator().manual_seed(0)
+        heads = {"implicit": teh.ImplicitReconstructionHead(feats.shape[1], generator=gen),
+                 "sequence": teh.PointSequenceReconstructionHead(feats.shape[1], generator=gen)}
+        calls = []
+
+        def recording(*args):
+            calls.append(tuple(a.clone() for a in args))
+            return orig(*args)
+
+        orig, teh.pair_min = teh.pair_min, recording
+        for fn in kernels.values():
+            fn.launches = 0
+        pm_mod.pair_min.stream_launches = 0
+        times = {}
+        try:
+            for key, head in heads.items():
+                head.to(dev).train()
+                t0 = time.perf_counter()
+                hd = head({"point_features": feats, "point_coords": bd["point_coords"],
+                           "point_valid": bd["point_valid"]})
+                loss = type(head).loss(hd)
+                loss.backward()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                times[key] = dict(seconds=time.perf_counter() - t0, loss=float(loss.detach()))
+        finally:
+            teh.pair_min = orig
+        launches = {n_: fn.launches for n_, fn in kernels.items()}
+        stream = pm_mod.pair_min.stream_launches
+        a, b, am, bm = calls[0]
+        shape = [a.shape[0], a.shape[1], b.shape[1]]
+        k_out, p_out = pm_mod.pair_min(*calls[0]), pm_mod.pair_min_plain(*calls[0])
+        mismatches = sum(int((ko != po).sum()) for ko, po in zip(k_out, p_out))
+        fin = torch.isfinite(p_out[0]) & torch.isfinite(k_out[0])
+        err = float((k_out[0][fin] - p_out[0][fin]).abs().max()) if fin.any() else 0.0
+        del k_out, p_out
+        plain_ms = cuda_time_ms(lambda: pm_mod.pair_min_plain(*calls[0]), 1, warmup=0)
+
+        def cdist_min(block=512):
+            for p0 in range(0, a.shape[1], block):
+                d2 = torch.cdist(a[:, p0:p0 + block], b,
+                                 compute_mode="donot_use_mm_for_euclid_dist") ** 2
+                torch.where(bm[:, None, :], d2, float("inf")).min(2)
+                torch.where(am[:, p0:p0 + block, None], d2, float("inf")).min(1)
+
+        # no single PyTorch call computes it at this shape ([P, Q] float32 is
+        # 116 GB); the chunked cdist + min above took 36.6 s (PERF.md), so
+        # only the rehearsal times it
+        lib_ms = cuda_time_ms(cdist_min, 1, warmup=0) if rehearse else None
+        # CUDA events around each call with the card idle before it: the
+        # four launches' device time plus the microseconds the host takes to
+        # enqueue them (a profiler session here, beside the second process,
+        # recorded no device event on one H100)
+        dev_ms = idle_call_ms(lambda: pm_mod.pair_min(*calls[0]), 3)
+        call_ms = cuda_time_ms(lambda: pm_mod.pair_min(*calls[0]), 3, warmup=1)
+        bms, by = pair_min_bound(*calls[0])
+        log(f"{tag} (c) {json.dumps(dict(points=n, heads=times, launches=launches, stream_launches=stream, pair_min_shape=shape, mismatches_against_plain=mismatches, max_abs_d2_err=err, device_ms=dev_ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))}")
+        if out is not None:
+            out["row"] = dict(
+                name="pair_min (streamed mode, C = 1)", route="cuda",
+                source="pcseqlearning_tpu_torch/csrc/pair_min.cu",
+                replaces="pcseqlearning_tpu/ops/pallas_tpu.py:55", launches=stream,
+                max_abs_err=err, ms=dev_ms, device_ms=dev_ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms, shape=shape)
+        if mismatches:
+            errs.append(f"15(c): the streamed pair_min differs from its plain version in "
+                        f"{mismatches} entries")
+        if not rehearse and stream < 1:
+            errs.append(f"15(c): pair_min's streamed mode was not launched ({launches})")
+        if not all(np.isfinite(t["loss"]) for t in times.values()):
+            errs.append(f"15(c): head losses {times} not finite")
+        del net, bd, feats, heads, calls
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ---- (d) graphs, samplers, volumes and primitive fitting on a bench frame
+    if "d" in parts:
+        from pcseqlearning_tpu_torch.models.graph_utils import build_graph
+        from pcseqlearning_tpu_torch.models.sampler_utils import build_sampler
+        from pcseqlearning_tpu_torch.models.volume_utils import build_volume
+        from pcseqlearning_tpu_torch.ops.primitives import primitive_fitting
+        from pcseqlearning_tpu_torch.scene import scene_dict
+
+        pts = torch.as_tensor(np.asarray(scene_dict(1, frame)["point_fxyz"], np.float32)[:, :4])
+        valid = torch.ones(pts.shape[0], dtype=torch.bool)
+        res = {}
+        for device in (dev, torch.device("cpu")):
+            p, v = pts.to(device), valid.to(device)
+            got, t0 = {}, time.perf_counter()
+            for cfg in ({"TYPE": "RadiusGraph", "RADIUS": 0.5, "MAX_NUM_NEIGHBORS": 16},
+                        {"TYPE": "VoxelGraph", "VOXEL_SIZE": [0.4, 0.4, 0.4]}):
+                got[cfg["TYPE"]] = build_graph(cfg)({"bxyz": p, "valid": v},
+                                                    {"bxyz": p, "valid": v})
+            q = 4096 if device.type == "cpu" else p.shape[0]
+            for cfg in ({"TYPE": "KNNGraph", "NUM_NEIGHBORS": 8},
+                        {"TYPE": "KNNGraphV2", "NUM_NEIGHBORS": 8}):
+                e = build_graph(cfg)({"bxyz": p, "valid": v}, {"bxyz": p[:q], "valid": v[:q]})
+                # the first 4,096 queries' edges (V2's weights take the median
+                # over all queries)
+                got[cfg["TYPE"]] = (e[0][:4096 * 8], e[1][:4096 * 8], None, e[3][:4096 * 8])
+            for cfg in ({"TYPE": "FPSSampler", "NUM_SAMPLES": 2048},
+                        {"TYPE": "GridSampler", "GRID_SIZE": [0.4, 0.4, 0.4]},
+                        {"TYPE": "VoxelCenterSampler", "GRID_SIZE": [0.4, 0.4, 0.4]},
+                        {"TYPE": "HybridSampler", "GRID_SIZE": [0.4, 0.4, 0.4],
+                         "NUM_SAMPLES": 1024},
+                        {"TYPE": "VolumeSampler", "VOXEL_SIZE": 0.8, "STRIDE": 2,
+                         "DOWNSAMPLE_TIMES": 2, "Z_PADDING": 0}):
+                got[cfg["TYPE"]] = build_sampler(cfg)(p, v)
+            vc = got["VoxelCenterSampler"]
+            ref = build_volume({"TYPE": "PCAVolume", "VOXEL_SIZE": [0.4, 0.4, 0.4]})(
+                {"bxyz": vc[0], "bcenter": vc[0], "valid": vc[1]}, p)
+            got["PCAVolume"] = (ref["volume_mask"], ref["volume"])
+            e = build_graph({"TYPE": "VolumeGraph", "VOXEL_SIZE": [0.4] * 3,
+                             "REF_KEY": "bxyz"})(ref, ref)
+            # the edges are decisions; the weights follow float32
+            # eigenvectors of voxels with few points (printed, not held)
+            got["VolumeGraph"] = (e[0], e[1], None, e[3])
+            got["volume_weights"] = e[2]
+            fit = primitive_fitting(p, v, [0.4, 0.4, 0.4], p.shape[0])
+            got["primitive_fitting"] = (fit["inverse"], fit["valid"], fit["num_iters_run"])
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            res[device.type] = ({k: tuple(x.cpu() if torch.is_tensor(x) else x for x in val)
+                                 if isinstance(val, tuple) else
+                                 {kk: vv.cpu() for kk, vv in val.items()}
+                                 if isinstance(val, dict) else val.cpu()
+                                 for k, val in got.items()}, time.perf_counter() - t0)
+        card, cpu = res[dev.type][0], res["cpu"][0]
+
+        def equal(x, y):
+            if isinstance(x, dict):
+                return all(equal(x[k], y[k]) for k in ("bcoords", "valid"))
+            if isinstance(x, tuple):
+                if len(x) == 4 and x[3] is not None and x[3].dtype == torch.bool:  # an edge list
+                    m = y[3]
+                    return torch_equal(x[3], m) and torch_equal(x[0][m], y[0][m]) and \
+                        torch_equal(x[1][m], y[1][m]) and (x[2] is None or bool(
+                            torch.allclose(x[2][m], y[2][m], rtol=1e-5, atol=1e-6)))
+                return all(equal(a_, b_) for a_, b_ in zip(x, y) if a_ is not None)
+            if x.dtype.is_floating_point:
+                return bool(torch.allclose(x, y, rtol=1e-5, atol=1e-5))
+            return torch_equal(x, y)
+
+        wd = (card["volume_weights"] - cpu["volume_weights"]).abs()
+        verdict = {k: equal(card[k], cpu[k]) for k in card if k != "volume_weights"}
+        log(f"{tag} (d) {json.dumps(dict(points=int(pts.shape[0]), equal=verdict, volume_weight_diff=dict(max=float(wd.max()), share_above_1e_5=float((wd > 1e-5).double().mean())), primitive_iterations=int(card['primitive_fitting'][2]), seconds_card=res[dev.type][1], seconds_cpu=res['cpu'][1]))}")
+        bad = [k for k, ok in verdict.items() if not ok]
+        if bad and not rehearse:
+            errs.append(f"15(d): card and CPU differ in {bad}")
+    return errs
+
+
 DETECTOR_PHASES = (anchor_detectors_phase, pv_detectors_phase, last_detectors_phase)
 
 
@@ -3805,7 +4206,8 @@ def detector_phases(repo, dev, gpu_line, kernels, rehearse, sizes, before=(), af
             run_phase(label, phase)
         t0 = time.perf_counter()
         rc = child.wait()
-        log(f"# phases 10(a)-12(a) in their own process (waited {time.perf_counter() - t0:.1f} "
+        log(f"# phases 10(a)-12(a), 15(a) in their own process (waited "
+            f"{time.perf_counter() - t0:.1f} "
             f"s after the last phase here); its output:")
         child_out = out_path.read_text()
         sys.stdout.write(child_out)
@@ -3814,15 +4216,15 @@ def detector_phases(repo, dev, gpu_line, kernels, rehearse, sizes, before=(), af
             f"{time.perf_counter() - t_a:.1f} s")
         if rc:  # its last lines to the standard error too, where they are seen
             sys.stderr.write("".join(child_out.splitlines(keepends=True)[-40:]))
-            fail(f"phases 10(a)-12(a) (card against CPU) failed: exit code {rc}")
+            fail(f"phases 10(a)-12(a), 15(a) (card against CPU) failed: exit code {rc}")
 
 
 def card_vs_cpu_main(spec):
-    """Phases 10(a), 11(a) and 12(a) alone, as ``detector_phases`` starts
-    them in a second process (``--card-vs-cpu <spec>``: the pickled repo,
-    card line, rehearsal flag, the three phases' sizes and the ``CARD_LOCK``
-    file), two of the CPU's threads left to the first process. Exits 1 on a
-    failure."""
+    """Phases 10(a), 11(a), 12(a) and 15(a) alone, as ``detector_phases``
+    starts them in a second process (``--card-vs-cpu <spec>``: the pickled
+    repo, card line, rehearsal flag, the four phases' sizes and the
+    ``CARD_LOCK`` file), two of the CPU's threads left to the first process.
+    Exits 1 on a failure."""
     global CARD_LOCK
     import torch
 
@@ -3840,8 +4242,11 @@ def card_vs_cpu_main(spec):
         t0 = time.perf_counter()
         errs += phase(repo, dev, gpu_line, kernels, rehearse, size, parts="a")
         log(f"# phase {name}(a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs += zoo_phase(repo, dev, gpu_line, kernels, rehearse, sizes[3], parts="a")
+    log(f"# phase 15(a): {time.perf_counter() - t0:.1f} s")
     if errs:
-        log("# phases 10(a)-12(a) FAILED: " + "; ".join(errs))
+        log("# phases 10(a)-12(a), 15(a) FAILED: " + "; ".join(errs))
         sys.exit(1)
 
 
@@ -3885,6 +4290,10 @@ def main():
                               for n, y, yaw in (("FRONT", 0.0, 0.0), ("SIDE_LEFT", 1.0, 1.57),
                                                 ("SIDE_RIGHT", -1.0, -1.57),
                                                 ("REAR", 0.0, 3.14))]), 8)
+        # phase 15: (a) VFE and point-backbone cells (extent, points, batch,
+        # cap, point cap), (b) the same, (d) one frame's points
+        zoo_size = ({"vfe": (3.2, 500, 2, 1024, None), "point": (3.2, 500, 2, 1024, None)},
+                    {"vfe": (3.2, 500, 2, 1024, None), "point": (3.2, 500, 2, 1024, 256)}, 2500)
         dist_sizes = ((3.2, 500, 8192), (4, 2000, 1500, 16_000, [
             "DATA_CONFIG.POINT_CLOUD_RANGE", "[-76.8,-76.8,-2,76.8,76.8,4]",
             "DATA_CONFIG.VOXEL_SIZE", "[0.8,0.8,0.2]", "DATA_CONFIG.DATA_PROCESSOR.2.VOXEL_SIZE",
@@ -3940,6 +4349,13 @@ def main():
         from pcseqlearning_tpu_torch.scene import WAYMO_LIDARS
 
         offline_size = (10, WAYMO_LIDARS, 60)
+        # phase 15: (a) the VFEs at phase 7(a)'s cell, the point backbones at
+        # phase 12(a)'s; (b) bench_detector's cell, the point backbones on
+        # POINT_CAP (16,384) rows a sample; (d) one bench frame
+        zoo_size = ({"vfe": (19.2, 20_000, 2, 30_000, None),
+                     "point": (6.4, 2_500, 2, 30_000, None)},
+                    {"vfe": (74.88, 160_000, 2, 120_000, None),
+                     "point": (74.88, 160_000, 2, 16_384, 16_384)}, 90_000)
         sync = torch.cuda.synchronize
     log(f"# gpu: {gpu_line}")
     log(f"# torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -4181,8 +4597,9 @@ def main():
     # ---- 8-13: the detector's CLIs, the distributed paths, the other nine
     # detectors and the training-data path; phases 10(a)-12(a) run in a
     # second process that starts first, beside all of them
+    zoo_out = {}
     detector_phases(
-        repo, dev, gpu_line, kernels, rehearse, (anchor_sizes, pv_sizes, last_sizes),
+        repo, dev, gpu_line, kernels, rehearse, (anchor_sizes, pv_sizes, last_sizes, zoo_size),
         before=[("# phase 8: ", lambda: detector_cli_phase(repo, dev, gpu_line, kernels,
                                                            rehearse, cli_size)),
                 ("# phase 9: ", lambda: dist_phase(repo, dev, gpu_line, kernels, rehearse,
@@ -4190,7 +4607,12 @@ def main():
         after=[("# data: phase 13 ", lambda: data_phase(repo, dev, gpu_line, kernels, rehearse,
                                                         data_size)),
                ("# offline: phase 14 ", lambda: offline_phase(repo, dev, gpu_line, kernels,
-                                                              rehearse, offline_size))])
+                                                              rehearse, offline_size)),
+               ("# zoo: phase 15(b-d) ", lambda: zoo_phase(repo, dev, gpu_line, kernels,
+                                                           rehearse, zoo_size, parts="bcd",
+                                                           out=zoo_out))])
+    if "row" in zoo_out:
+        rows.append(zoo_out["row"])
 
     for r in rows:
         log(f"# {r['name']}: device {r['device_ms']:.5f} ms, call {r['call_ms']:.5f} ms "

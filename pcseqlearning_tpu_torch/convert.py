@@ -62,11 +62,14 @@ def config_from_jax(cfg, env=os.environ, jax_backend="tpu"):
 _FLAX_NAMES = {"MaskedBatchNorm_0": "bn", "SubMConvBlock_0": "conv0", "SubMConvBlock_1": "conv1",
                "BatchNorm2d_0": "shared_bn", "Conv_0": "shared_conv", "Conv_1": "hm",
                "Conv_2": "center", "Conv_3": "center_z", "Conv_4": "dim", "Conv_5": "rot",
-               "SAGroup_0": "group", "MultiHeadDotProductAttention_0": "attn"}
+               "SAGroup_0": "group", "MultiHeadDotProductAttention_0": "attn",
+               "KernelMessagePassing_0": "kmp"}
 _FLAX_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
                 ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
                 ("batch_stats", "var"): "running_var",
-                ("params", "group_kernel"): "group_kernel"}
+                ("params", "group_kernel"): "group_kernel",
+                ("params", "kp_weights"): "kp_weights",
+                ("params", "kernel_weights"): "kernel_weights"}
 
 
 # flax's auto-named layers: Dense_i -> linear{i}, MaskedBatchNorm_i and
@@ -74,12 +77,12 @@ _FLAX_LEAVES = {("params", "kernel"): "weight", ("params", "scale"): "weight",
 # FC trunk ("head") and PVRCNNHead's pooling MLP ("roi_head"), the keypoint
 # branch ("pfe") and its SA groups ("sa_<source>"), the co-train's seg head,
 # the point head ("dense_head"), SST's input layer ("backbone_3d") and blocks
-# ("block_<i>"), and PointNet++'s SA groups ("SAGroup_0") and FP layers
-# ("fp<i>")
+# ("block_<i>"), PointNet++'s SA groups ("SAGroup_0") and FP layers
+# ("fp<i>"), and the KPConv blocks ("kp<l>a", "kp<l>b")
 _AUTO_NAMED = re.compile(r"(Dense|MaskedBatchNorm|LayerNorm)_(\d+)$")
 _AUTO_PARENTS = ("vfe", "head", "roi_head", "pfe", "seg_head", "dense_head", "backbone_3d",
                  "SAGroup_0")
-_AUTO_PARENT_PATTERN = re.compile(r"(sa_.*|block_\d+|fp\d+)$")
+_AUTO_PARENT_PATTERN = re.compile(r"(sa_.*|block_\d+|fp\d+|kp\d+[ab])$")
 
 
 def _port_name(parent, name):
@@ -106,8 +109,10 @@ def detector_params_from_flax(variables):
     k and v and [heads, hd, out] for the output, become torch's Linear
     (heads x hd, in) and (out, heads x hd), their biases flattened; sparse
     conv kernels stay [K, Cin, Cout] (offsets in
-    ``itertools.product`` (dz, dy, dx) order), and so does the vector
-    pool's per-voxel ``group_kernel`` [V, Cin, Cout]; flax Dense kernels
+    ``itertools.product`` (dz, dy, dx) order), and so do the vector
+    pool's per-voxel ``group_kernel`` [V, Cin, Cout], KPConv's
+    ``kp_weights`` [P, Cin, Cout] and the kernel message passing's
+    ``kernel_weights`` [K, Cin, Cout]; flax Dense kernels
     (in, out) become torch's Linear (out, in); flax Conv kernels (H, W, in,
     out) become torch's (out, in, H, W); flax ConvTranspose kernels (u, u,
     in, out) become torch's (in, out, u, u) flipped in both spatial axes,

@@ -38,6 +38,24 @@
 // The distance uses round-to-nearest intrinsics so nvcc cannot contract it
 // into FMAs: the kernel then rounds exactly like the plain PyTorch version
 // (dx*dx + dy*dy + dz*dz, each op rounded), and outputs agree bit for bit.
+//
+// Streamed mode, for sides too large for the shared-memory tile (max(P, Q)
+// above 14,464 points; ImplicitReconstructionHead.loss calls C = 1, P =
+// 27 n samples, Q = n returns, n = 32,768 at full width: 2.9e10 pairs each
+// way). Again operations bound it, and with one component the whole card
+// must share one row set, so the scanned side is cut too:
+//   * A block owns S_ROWS rows of one direction (S_RPT rows a thread, kept
+//     in registers, so each staged point read from shared memory serves
+//     S_RPT distances) and one slice of S_SLICE scanned points, which it
+//     streams through shared memory S_CHUNK points at a time. A masked
+//     point is staged with NaN coordinates: its distance is NaN, which no
+//     strict < takes, so it costs no branch.
+//   * Within a block the scan runs in index order with a strict <, which
+//     keeps the first argmin. Across the slices of a row the minima merge
+//     with a 64-bit atomicMin on (d2 bits << 32 | index): d2 >= 0, so its
+//     float bits order as unsigned integers, and equal d2 go to the lower
+//     index, the first argmin again. Keys start at (+inf bits, 0), which an
+//     empty row keeps: +inf and index 0. A finish kernel unpacks the keys.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -148,9 +166,128 @@ __global__ void __launch_bounds__(THREADS)
   out_i[row] = arg;
 }
 
+#define S_THREADS 128             // threads per block, streamed mode
+#define S_RPT 2                   // rows a thread
+#define S_ROWS (S_THREADS * S_RPT)  // rows a block
+#define S_CHUNK 1024              // scanned points staged at a time (16 KB)
+#define S_SLICE 4096              // scanned points a block covers
+
+__global__ void pair_min_stream_init(unsigned long long* __restrict__ keys, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) keys[i] = (unsigned long long)__float_as_uint(INFINITY) << 32;
+}
+
+__global__ void __launch_bounds__(S_THREADS)
+    pair_min_stream_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                           const uint8_t* __restrict__ a_mask, const uint8_t* __restrict__ b_mask,
+                           int C, int P, int Q, int fwd_tiles, int fwd_slices, int bwd_slices,
+                           unsigned long long* __restrict__ fwd_keys,
+                           unsigned long long* __restrict__ bwd_keys) {
+  __shared__ float4 sm[S_CHUNK];
+  const int fwd_blocks = fwd_tiles * fwd_slices;
+  const int s = blockIdx.x;
+  const bool fwd = s < fwd_blocks;
+  const int t = fwd ? s : s - fwd_blocks;
+  const int slices = fwd ? fwd_slices : bwd_slices;
+  const int tile = t / slices, slice = t % slices;
+  const int nrows = fwd ? P : Q, nscan = fwd ? Q : P;
+  const int j0 = slice * S_SLICE;
+  const int j1 = min(nscan, j0 + S_SLICE);
+  for (long long c = blockIdx.y; c < C; c += gridDim.y) {
+    const float* rows = fwd ? a + c * P * 3 : b + c * Q * 3;
+    const float* scan = fwd ? b + c * Q * 3 : a + c * P * 3;
+    const uint8_t* scan_mask = fwd ? b_mask + c * Q : a_mask + c * P;
+    unsigned long long* keys = fwd ? fwd_keys + c * P : bwd_keys + c * Q;
+    float x[S_RPT], y[S_RPT], z[S_RPT], best[S_RPT];
+    int arg[S_RPT];
+#pragma unroll
+    for (int r = 0; r < S_RPT; ++r) {
+      const int row = tile * S_ROWS + r * S_THREADS + threadIdx.x;
+      const bool ok = row < nrows;
+      x[r] = ok ? rows[3 * row] : 0.f;
+      y[r] = ok ? rows[3 * row + 1] : 0.f;
+      z[r] = ok ? rows[3 * row + 2] : 0.f;
+      best[r] = INFINITY;
+      arg[r] = 0;
+    }
+    for (int base = j0; base < j1; base += S_CHUNK) {
+      const int n = min(S_CHUNK, j1 - base);
+      __syncthreads();  // the previous chunk has been read
+      for (int k = threadIdx.x; k < n; k += S_THREADS) {
+        const int j = base + k;
+        sm[k] = scan_mask[j] ? make_float4(scan[3 * j], scan[3 * j + 1], scan[3 * j + 2],
+                                           __int_as_float(j))
+                             : make_float4(NAN, NAN, NAN, __int_as_float(j));
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        const float4 p = sm[k];
+#pragma unroll
+        for (int r = 0; r < S_RPT; ++r) {
+          const float d = d2_direct(x[r], y[r], z[r], p);
+          if (d < best[r]) {  // strict: ties keep the first index; NaN never
+            best[r] = d;
+            arg[r] = __float_as_int(p.w);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < S_RPT; ++r) {
+      const int row = tile * S_ROWS + r * S_THREADS + threadIdx.x;
+      if (row < nrows && best[r] < INFINITY)
+        atomicMin(keys + row, ((unsigned long long)__float_as_uint(best[r]) << 32) |
+                                  (unsigned int)arg[r]);
+    }
+  }
+}
+
+__global__ void pair_min_stream_finish(const unsigned long long* __restrict__ keys, long long n,
+                                       float* __restrict__ d2, int* __restrict__ idx) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const unsigned long long k = keys[i];
+    d2[i] = __uint_as_float((unsigned int)(k >> 32));
+    idx[i] = (int)(unsigned int)(k & 0xffffffffu);
+  }
+}
+
+// The streamed mode: keys is scratch of C * (P + Q) 64-bit words (forward
+// rows first). Four launches on the stream: init, scan, two finishes.
+static int pair_min_stream(const void* a, const void* b, const void* a_mask, const void* b_mask,
+                           int C, int P, int Q, void* fwd_d2, void* fwd_idx, void* bwd_d2,
+                           void* bwd_idx, void* keys, cudaStream_t stream) {
+  unsigned long long* fk = (unsigned long long*)keys;
+  unsigned long long* bk = fk + (long long)C * P;
+  const long long n = (long long)C * (P + Q);
+  pair_min_stream_init<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(fk, n);
+  const int fwd_tiles = (P + S_ROWS - 1) / S_ROWS, bwd_tiles = (Q + S_ROWS - 1) / S_ROWS;
+  const int fwd_slices = (Q + S_SLICE - 1) / S_SLICE, bwd_slices = (P + S_SLICE - 1) / S_SLICE;
+  const long long blocks = (long long)fwd_tiles * fwd_slices + (long long)bwd_tiles * bwd_slices;
+  if (blocks > 0) {
+    const dim3 grid((unsigned)blocks, (unsigned)(C < 65535 ? C : 65535));
+    pair_min_stream_kernel<<<grid, S_THREADS, 0, stream>>>(
+        (const float*)a, (const float*)b, (const uint8_t*)a_mask, (const uint8_t*)b_mask, C, P,
+        Q, fwd_tiles, fwd_slices, bwd_slices, fk, bk);
+  }
+  const long long nf = (long long)C * P, nb = (long long)C * Q;
+  if (nf > 0)
+    pair_min_stream_finish<<<(unsigned)((nf + 255) / 256), 256, 0, stream>>>(
+        fk, nf, (float*)fwd_d2, (int*)fwd_idx);
+  if (nb > 0)
+    pair_min_stream_finish<<<(unsigned)((nb + 255) / 256), 256, 0, stream>>>(
+        bk, nb, (float*)bwd_d2, (int*)bwd_idx);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int pair_min_launch(const void* a, const void* b, const void* a_mask,
                                const void* b_mask, int C, int P, int Q, void* fwd_d2,
-                               void* fwd_idx, void* bwd_d2, void* bwd_idx, void* stream) {
+                               void* fwd_idx, void* bwd_d2, void* bwd_idx, void* keys,
+                               void* stream) {
+  if (keys != nullptr)  // the wrapper gives scratch keys when the tile cannot hold a side
+    return pair_min_stream(a, b, a_mask, b_mask, C, P, Q, fwd_d2, fwd_idx, bwd_d2, bwd_idx, keys,
+                           (cudaStream_t)stream);
   const int fwd_blocks = (P + ROWS - 1) / ROWS, bwd_blocks = (Q + ROWS - 1) / ROWS;
   if (C == 0 || fwd_blocks + bwd_blocks == 0) return 0;
   const size_t smem = (size_t)(P > Q ? P : Q) * sizeof(float4);

@@ -18,7 +18,7 @@ def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
     from ``runtime_cfg`` (``data_cfg``, ``class_names``, ``voxel_cap``, as the
     JAX ``build_detector`` does) and the VFE's width from ``dataset``'s point
     feature encoding when a dataset is given."""
-    from .detectors import build_detector, unported
+    from .detectors import build_detector
 
     name = model_cfg["NAME"]
     if name == "SimpleReg":
@@ -31,4 +31,4 @@ def build_network(model_cfg, runtime_cfg=None, dataset=None, device="cuda"):
             runtime_cfg.setdefault("num_point_features",
                                    dataset.point_feature_encoder.num_point_features)
         return build_detector(model_cfg, runtime_cfg, device=device)
-    raise unported("build_network: the detector", name)
+    raise KeyError(name)

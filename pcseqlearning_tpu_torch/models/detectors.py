@@ -6,10 +6,12 @@ has no VFE and no BEV path: PointNet2MSG, the point head, the RoI stage.
 It builds CenterPoint (with SST for SST-CenterPoint), SECONDNet,
 SECONDNetIoU, PointPillar, VoxelRCNN, PartA2Net, PVRCNN, PVRCNNPlusPlus,
 PVRCNNPlusPlusCoTrain, PointRCNN and CaDDN as their configs name their
-modules. The module names of the JAX package's model zoo that no config
-of tools/cfgs/waymo_models names raise NotImplementedError naming the
-ROADMAP.md item that ports them; a name neither package has raises
-KeyError, as in JAX.
+modules, and the JAX package's model zoo that no config names: the VFEs
+DynamicVFE, PlaneFitting / HybridVFE, RepsurfDynamicVFE and TemporalVFE,
+and the point backbones KPConv / KPConvNet and the GraphConvNet variants
+(PointConvNet, VolumeConvNet, PointGroupNet, PointPlaneNet,
+PointNet2RepSurf), each built with its defaults, as in JAX. A name neither
+package has raises KeyError, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,29 +26,16 @@ from ..ops.sampling import top_k
 from . import roi_heads as rh
 from .backbones_2d import BaseBEVBackbone, HeightCompression, PointPillarScatter
 from .backbones_3d import BACKBONES_3D
+from .backbones_graph import VARIANTS as GRAPH_VARIANTS
+from .backbones_graph import GraphConvNet
+from .backbones_kpconv import KPConvNet
 from .backbones_point import PointHeadBox, PointHeadSimple, PointNet2MSG
 from .backbones_sst import SSTBackbone
 from .backbones_unet import UNetV2, stage4_depth
 from .dense_heads import AnchorHeadSingle, CenterHead
 from .model_nms_utils import argsort_desc
 from .pfe import VoxelSetAbstraction
-from .vfe import DynamicMeanVFE, DynPillarVFE, ImageVFE
-
-# the JAX package's modules that no config of tools/cfgs/waymo_models names
-# (ROADMAP.md, queue 1 item 4.6)
-_LEFT = ("DynamicVFE", "PlaneFitting", "HybridVFE", "RepsurfDynamicVFE", "KPConv", "KPConvNet",
-         "PointConvNet", "VolumeConvNet", "PointGroupNet", "PointPlaneNet", "PointNet2RepSurf")
-
-
-def unported(what, name):
-    """The error for module ``name`` that the port lacks: NotImplementedError
-    naming ROADMAP.md queue 1 item 4.6 for a module of the JAX package's
-    model zoo, else KeyError, as the JAX package raises for a name it does
-    not have."""
-    if name in _LEFT:
-        return NotImplementedError(f"{what} {name!r} is not ported yet (ROADMAP.md, queue 1 "
-                                   f"item 4.6)")
-    return KeyError(name)
+from .vfe import ZOO_VFES, DynamicMeanVFE, DynPillarVFE, ImageVFE, PlaneFittingVFE, TemporalVFE
 
 
 def _conv_out_depth(nz):
@@ -114,8 +103,20 @@ class Detector3DTemplate(nn.Module):
             elif vfe_name == "ImageVFE":  # built with its defaults, as in JAX
                 self.vfe = ImageVFE(voxel_size, point_cloud_range, voxel_cap, generator=generator)
                 bev_channels = self.vfe.out_channels
+            elif vfe_name in ZOO_VFES:  # the model zoo's, with their defaults, as in JAX
+                cls = ZOO_VFES[vfe_name]
+                if cls is TemporalVFE:  # writes no voxel table: the 3D backbone raises
+                    self.vfe = cls(voxel_size, point_cloud_range, voxel_cap)
+                elif cls is PlaneFittingVFE:
+                    self.vfe = cls(voxel_size, point_cloud_range, voxel_cap,
+                                   num_point_features=num_point_features)
+                else:
+                    self.vfe = cls(voxel_size, point_cloud_range, voxel_cap,
+                                   num_point_features=num_point_features, generator=generator)
+                bev_channels = getattr(self.vfe, "out_channels", num_point_features)
             else:
-                raise unported("the VFE", vfe_name)
+                raise KeyError(vfe_name)
+        voxel_width = bev_channels  # the voxel table's width, the 3D backbone's input
         self.backbone_3d = None
         sparse_3d = False  # the dense head's default stride is 8 after a sparse backbone
         if "BACKBONE_3D" in cfg:
@@ -124,10 +125,10 @@ class Detector3DTemplate(nn.Module):
             kw = dict(dense_table_cap=dense_table_cap, generator=generator)
             sparse_3d = b3d_name == "UNetV2" or b3d_name in BACKBONES_3D
             if b3d_name == "UNetV2":  # no conv_out: x_conv4 goes to the BEV
-                self.backbone_3d = UNetV2(num_point_features, grid_size, voxel_cap, **kw)
+                self.backbone_3d = UNetV2(voxel_width, grid_size, voxel_cap, **kw)
                 bev_channels = self.backbone_3d.channels[4] * stage4_depth(grid_size[2])
             elif b3d_name in BACKBONES_3D:
-                self.backbone_3d = BACKBONES_3D[b3d_name](num_point_features, grid_size,
+                self.backbone_3d = BACKBONES_3D[b3d_name](voxel_width, grid_size,
                                                           voxel_cap, **kw)
                 bev_channels = (self.backbone_3d.conv_out.weight.shape[-1]
                                 * _conv_out_depth(grid_size[2]))
@@ -142,8 +143,13 @@ class Detector3DTemplate(nn.Module):
                 bev_channels = self.backbone_3d.out_channels
             elif b3d_name in ("PointNet2MSG", "PointNet2Backbone"):  # with its defaults
                 self.backbone_3d = PointNet2MSG(num_point_features - 3, generator=generator)
+            elif b3d_name in ("KPConv", "KPConvNet"):  # with its defaults
+                self.backbone_3d = KPConvNet(num_point_features - 3, generator=generator)
+            elif b3d_name in GRAPH_VARIANTS:  # with its defaults
+                self.backbone_3d = GraphConvNet(num_point_features - 3, variant=b3d_name,
+                                                generator=generator)
             else:
-                raise unported("the 3D backbone", b3d_name)
+                raise KeyError(b3d_name)
         # a point-based model has no BEV path
         self.map_to_bev = self.backbone_2d = self.pfe = self.seg_head = None
         if not self.is_point_based:
@@ -153,7 +159,7 @@ class Detector3DTemplate(nn.Module):
             elif m2b == "PointPillarScatter":
                 self.map_to_bev = PointPillarScatter(grid_size)
             else:
-                raise unported("MAP_TO_BEV", m2b)
+                raise KeyError(m2b)
             # PV-RCNN's keypoint branch, between the BEV map and the 2D backbone;
             # a PlusPlus model aggregates by vector pooling unless the config says
             if "PFE" in cfg:
@@ -200,7 +206,7 @@ class Detector3DTemplate(nn.Module):
                 # at the head's own grid (JAX builds it with its defaults)
                 self.roi_head = rh.ROI_HEADS[rname](num_point_features - 3, generator=generator)
             else:
-                raise unported("the RoI head", rname)
+                raise KeyError(rname)
             self.num_rois = int(rcfg.get("NMS_POST_MAXSIZE", 128))
         head = cfg["DENSE_HEAD"]
         stride = int(head.get("FEATURE_MAP_STRIDE", 8 if sparse_3d else 1))
@@ -219,7 +225,7 @@ class Detector3DTemplate(nn.Module):
                 point_cloud_range, _anchor_cfgs(head), predict_iou=name == "SECONDNetIoU",
                 generator=generator))
         else:
-            raise unported("the dense head", head["NAME"])
+            raise KeyError(head["NAME"])
 
     def forward(self, batch_dict):
         """The VFE computes its cells in the points' dtype; what it returns

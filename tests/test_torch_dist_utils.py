@@ -115,7 +115,10 @@ def _hang(rank, world):
 
 
 def test_launch_ranks_ends_a_hung_rank(tmp_path):
+    """The hung rank 1 is named and both are ended. Whether the healthy rank
+    0 is still starting when the 8 s run out depends on the machine's load
+    (in a six-worker test run it can be), so it may be named too."""
     t0 = time.time()
-    with pytest.raises(TimeoutError, match=r"ranks \[1\]"):
+    with pytest.raises(TimeoutError, match=r"ranks \[(0, )?1\] still running"):
         dist_utils.launch_ranks(_hang, 2, str(tmp_path / "store"), timeout=8)
     assert time.time() - t0 < 60

@@ -103,10 +103,10 @@ def test_cli_needs_a_card_unless_cpu_and_refuses_detectors(tmp_path, monkeypatch
                 "--set", "ROOT_DIR", str(tmp_path)]
     with pytest.raises(RuntimeError, match="cuda"):  # the detector CLI needs a card too
         train.main(detector)
-    # a module the port does not have yet is refused by build_network
-    with pytest.raises(NotImplementedError, match="DynamicVFE.*queue 1 item 4.6"):
+    # a module neither package has is refused by build_network, as in JAX
+    with pytest.raises(KeyError, match="NoSuchVFE"):
         train.main(detector[:3] + ["--device", "cpu"] + detector[3:]
-                   + ["MODEL.VFE.NAME", "DynamicVFE"])
+                   + ["MODEL.VFE.NAME", "NoSuchVFE"])
 
 
 def _direct_pair_min(a, b, a_mask, b_mask):
@@ -192,21 +192,19 @@ def test_slice_matches_jax(tmp_path, monkeypatch, jax_knn_proposal_pallas_tracki
 
 
 def test_cli_refuses_detector_training_before_building(tmp_path):
-    """The detector-training command with a module that the port does not
-    have (centerpoint.yaml with the model zoo's DynamicVFE) exits with the
-    NotImplementedError that names ROADMAP.md's queue 1 item 4.6, before
-    the model or a checkpoint is built: no checkpoint directory is
-    written."""
+    """The detector-training command with a module that neither package has
+    (centerpoint.yaml with VFE.NAME NoSuchVFE) exits with the KeyError that
+    JAX's build_network raises, naming it, before the model or a checkpoint
+    is built: no checkpoint directory is written."""
     res = subprocess.run(
         [sys.executable, "-m", "pcseqlearning_tpu_torch.train",
          "tools/cfgs/waymo_models/centerpoint.yaml",
          "tools/cfgs/dataset_configs/waymo/detection_1sweep.yaml",
          "tools/cfgs/optimizers/adamW_onecycle.yaml", "--device", "cpu",
          "--set", "ROOT_DIR", str(tmp_path), "DATA_CONFIG.DATA_PATH", str(tmp_path / "none"),
-         "MODEL.VFE.NAME", "DynamicVFE"],
+         "MODEL.VFE.NAME", "NoSuchVFE"],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     last = res.stderr.strip().splitlines()[-1]
-    assert last.startswith("NotImplementedError") and "queue 1 item 4.6" in last, res.stderr
-    assert "DynamicVFE" in last
+    assert last.startswith("KeyError") and "NoSuchVFE" in last, res.stderr
     assert not list(tmp_path.rglob("ckpt")) and not list(tmp_path.rglob("checkpoint_epoch_*"))

@@ -276,6 +276,105 @@ def test_pair_min_split_covers_every_row_once(C, P, Q):
         assert len(blocks) >= 4 * 132
 
 
+def _tie_case(C=3, P=70, Q=90, seed=3):
+    """Points on a coarse lattice (many equal distances, so ties straddle
+    the chunk edges), one empty row on each side."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 3, (C, P, 3)).astype(np.float32)
+    b = rng.randint(0, 3, (C, Q, 3)).astype(np.float32)
+    am, bm = rng.rand(C, P) > 0.3, rng.rand(C, Q) > 0.3
+    am[1], bm[2] = False, False
+    return a, b, am, bm
+
+
+@pytest.mark.parametrize("block", [1, 64, 700, 2100, 1 << 24])
+def test_pair_min_plain_chunked_equals_unchunked(block):
+    """The plain version in tiles of at most ``block`` distances (P rows by
+    Q columns, merged with a strict <) equals one min over whole rows, bit
+    for bit: values, first argmin on ties across tile edges, and +inf /
+    index 0 for empty rows."""
+    args = tuple(T(x) for x in _tie_case())
+    whole = tpm.pair_min_plain(*args, block=1 << 30)
+    got = tpm.pair_min_plain(*args, block=block)
+    for g, w in zip(got, whole):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    a, b, am, bm = (x.numpy() for x in args)
+    d = ((a[:, :, None, :] - b[:, None, :, :]) ** 2).sum(-1)
+    fwd = np.where(bm[:, None, :], d, np.inf)
+    np.testing.assert_array_equal(whole[1].numpy(), fwd.argmin(2))  # NumPy's first argmin
+    assert np.isinf(whole[2].numpy()[1]).all() and (whole[3].numpy()[1] == 0).all()
+
+
+def _stream_emulation(a, b, am, bm, rows_per_block, slice_len, chunk):
+    """csrc/pair_min.cu's streamed mode in NumPy: per (row tile, slice)
+    block, each row scans its slice chunk by chunk in index order with a
+    strict <, masked points NaN; the slices merge by the minimum of the
+    64-bit key (d2 bits << 32 | index) from (+inf, 0)."""
+    C, P, Q = a.shape[0], a.shape[1], b.shape[1]
+    out = []
+    for rows, scan, mask, nrows, nscan in ((a, b, bm, P, Q), (b, a, am, Q, P)):
+        keys = np.full((C, nrows), np.uint64(np.float32(np.inf).view(np.uint32)) << np.uint64(32))
+        for c in range(C):
+            pts = np.where(mask[c][:, None], scan[c], np.float32(np.nan))
+            for t0 in range(0, nrows, rows_per_block):
+                r = np.arange(t0, min(nrows, t0 + rows_per_block))
+                for j0 in range(0, nscan, slice_len):
+                    best = np.full(len(r), np.inf, np.float32)
+                    arg = np.zeros(len(r), np.int64)
+                    for base in range(j0, min(nscan, j0 + slice_len), chunk):
+                        for j in range(base, min(nscan, j0 + slice_len, base + chunk)):
+                            dd = rows[c, r] - pts[j]
+                            dist = (dd[:, 0] * dd[:, 0] + dd[:, 1] * dd[:, 1]) + dd[:, 2] * dd[:, 2]
+                            with np.errstate(invalid="ignore"):
+                                take = dist < best
+                            best, arg = np.where(take, dist, best), np.where(take, j, arg)
+                    fin = best < np.inf
+                    key = (best.astype(np.float32).view(np.uint32).astype(np.uint64)
+                           << np.uint64(32)) | arg.astype(np.uint64)
+                    keys[c, r[fin]] = np.minimum(keys[c, r[fin]], key[fin])
+        out += [(keys >> np.uint64(32)).astype(np.uint32).view(np.float32),
+                (keys & np.uint64(0xFFFFFFFF)).astype(np.int32)]
+    return out
+
+
+def test_pair_min_stream_mode_design_equals_plain():
+    """The streamed mode's tiling and key merge (emulated with its own
+    S_THREADS, S_RPT, S_SLICE and S_CHUNK scaled down by 32) give the
+    plain version's results bit for bit, ties and empty rows included; its
+    grid covers every (row, scanned point) pair of each direction once."""
+    threads, rpt = _cu_define("pair_min.cu", "S_THREADS"), _cu_define("pair_min.cu", "S_RPT")
+    slice_len, chunk = _cu_define("pair_min.cu", "S_SLICE"), _cu_define("pair_min.cu", "S_CHUNK")
+    assert slice_len % chunk == 0 and threads % 32 == 0
+    a, b, am, bm = _tie_case()
+    got = _stream_emulation(a, b, am, bm, threads * rpt // 32, slice_len // 32, chunk // 32)
+    want = tpm.pair_min_plain(T(a), T(b), T(am), T(bm))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    P, Q, rows = 884_736, 32_768, threads * rpt  # the head's full-width call
+    for nrows, nscan in ((P, Q), (Q, P)):
+        tiles, slices = -(-nrows // rows), -(-nscan // slice_len)
+        assert tiles * rows >= nrows > (tiles - 1) * rows
+        assert slices * slice_len >= nscan > (slices - 1) * slice_len
+
+
+def test_pair_min_plain_holds_the_heads_shape_in_tiles():
+    """At the reconstruction head's shape the plain version never builds
+    more than its block of distances at once: P = 27 * 2048 samples
+    against Q = 2048 returns in tiles of 8192 rows (2^24 / Q)."""
+    rng = np.random.RandomState(0)
+    P, Q = 27 * 2048, 2048
+    a = T(rng.rand(1, P, 3).astype(np.float32))
+    b = T(rng.rand(1, Q, 3).astype(np.float32))
+    am, bm = torch.ones(1, P, dtype=torch.bool), T(rng.rand(1, Q) > 0.1)
+    fd, fi, bd, bi = tpm.pair_min_plain(a, b, am, bm)
+    sub = slice(0, 2048)  # spot-check against the whole-row min
+    whole = tpm.pair_min_plain(a[:, sub], b, am[:, sub], bm, block=1 << 30)
+    np.testing.assert_array_equal(fd[:, sub].numpy(), whole[0].numpy())
+    np.testing.assert_array_equal(fi[:, sub].numpy(), whole[1].numpy())
+    assert fd.shape == (1, P) and bd.shape == (1, Q) and int(bi.max()) < P
+
+
 @pytest.mark.parametrize("k", [1, 4, 8])
 def test_radius_scan_matches_pallas_interpret_and_brute_force(rng, k):
     n = 300

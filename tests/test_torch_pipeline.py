@@ -137,7 +137,11 @@ def test_import_loads_no_jax():
         "       'datasets.waymo_protos', 'datasets.waymo_protos.wire',\n"
         "       'datasets.waymo_protos.dataset', 'datasets.range_image',\n"
         "       'tools.create_waymo_infos', 'tools.propagate_segmentation_labels',\n"
-        "       'tools.waymo_fl_eval', 'models.visualizers', 'utils.profiler', 'utils.flops']\n"
+        "       'tools.waymo_fl_eval', 'models.visualizers', 'utils.profiler', 'utils.flops',\n"
+        "       'models.blocks', 'models.backbones_kpconv', 'models.backbones_graph',\n"
+        "       'models.graph_utils', 'models.repsurf', 'models.sampler_utils',\n"
+        "       'models.volume_utils', 'models.extra_heads', 'ops.primitives',\n"
+        "       'ops.voxel_modules']\n"
         "missing = [n for n in new if 'pcseqlearning_tpu_torch.' + n not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('pcseqlearning_tpu_torch')]))\n"
         "assert not bad and not missing, (bad, missing)\n"

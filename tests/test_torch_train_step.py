@@ -3,18 +3,23 @@
 the toy CenterPoint of tests/test_torch_detector.py (dense batch: 2 x 256
 points).
 
-Tolerances: the losses and grad_norm of steps 1, 2 and 3 at 1e-4, 1e-3
-and 5e-3 relative. Adam's first update is about lr * sign(g) for every
-entry, so an entry whose gradient is float32 rounding noise around zero
-moves by +-lr in either package at random: after the first step a handful
-of the 2.9M parameter entries moved differently, each by 2 lr
-(``test_first_update_equals_jax`` allows at most 20 and holds every other
-entry to 1e-5), and they move step 2's losses by ~1e-4 and step 3's by
-~1.5e-3 relative (hm_loss; the measured errors are in CHANGES.md). One
-Adam update on fixed gradients against optax.adam: 1e-6.
-dense_batch_from_collated: exact.
+Tolerances: each of steps 1, 2 and 3, taken from JAX's state before it,
+gives JAX's losses and grad_norm to 1e-4 relative (measured: 1e-6). Run on
+from its own updates, the port drifts from JAX by a decision that float32
+noise takes: Adam's first update is about lr * sign(g) for every entry, so
+an entry whose gradient is rounding noise around zero moves by +-lr in
+either package at random. After the first update 12 of the 2.9M entries
+moved differently (all in the sparse backbone's deepest convolutions,
+res3-res4 and conv4_down, whose few active voxels give near-zero
+gradients); the second update then moved ~179k entries of those layers
+differently (their normalized updates are also ~lr * sign(g)), which took
+hm_loss from 7.6e-6 (step 2) to 5.8e-3 (step 3) relative on an AMD EPYC,
+a distance that rests on the host's order of adds. So the free run is held
+only to its own step count and to a falling loss, and
+``test_first_update_equals_jax`` holds every entry of the first update but
+at most 20 to 1e-5. One Adam update on fixed gradients against optax.adam:
+1e-6. dense_batch_from_collated: exact.
 """
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,12 +65,13 @@ def jax_steps():
     step = jts.make_train_step(model, tx, make_mesh(jax.devices()[:1], dp=1),
                                loss_key="center_loss")
     dev_batch = {k: jnp.asarray(v) for k, v in batch.items()}
-    losses, params = [], []
+    losses, params, stats = [], [], []
     for _ in range(STEPS):
         state, ls = step(state, dev_batch)
         losses.append({k: float(v) for k, v in ls.items()})
         params.append(jax.tree_util.tree_map(np.asarray, state.params))
-    return init, losses, params
+        stats.append(jax.tree_util.tree_map(np.asarray, state.batch_stats))
+    return init, losses, params, stats
 
 
 def port_state(init):
@@ -75,24 +81,29 @@ def port_state(init):
 
 
 def test_three_steps_equal_jax(jax_steps):
-    init, ref, _ = jax_steps
-    state = port_state(init)
+    init, ref, params, stats = jax_steps
     step = tts.make_train_step(loss_key="center_loss", device="cpu")
     batch = dense_batch()
-    for i, rtol in enumerate((1e-4, 1e-3, 5e-3)):
-        state, losses = step(state, batch)
+    carried = [init] + [{"params": p, "batch_stats": s} for p, s in zip(params, stats)]
+    for i in range(STEPS):
+        _, losses = step(port_state(carried[i]), batch)
         for k in ("center_loss", "hm_loss", "loc_loss", "grad_norm"):
             print(f"step {i} {k}: relative error {abs(float(losses[k]) / ref[i][k] - 1):.2e}")
-            np.testing.assert_allclose(float(losses[k]), ref[i][k], rtol=rtol,
+            np.testing.assert_allclose(float(losses[k]), ref[i][k], rtol=1e-4,
                                        err_msg=f"step {i} {k}")
+    state, own = port_state(init), []
+    for _ in range(STEPS):
+        state, losses = step(state, batch)
+        own.append(float(losses["center_loss"]))
     assert state.step == STEPS
     assert ref[-1]["center_loss"] < ref[0]["center_loss"]
+    assert own[-1] < own[0]
 
 
 def test_first_update_equals_jax(jax_steps):
     """After one step every parameter entry equals JAX's to 1e-5, but for
     at most 20 whose update went another way (at most 2 lr apart)."""
-    init, _, params = jax_steps
+    init, _, params, _ = jax_steps
     state, _ = tts.make_train_step(loss_key="center_loss", device="cpu")(port_state(init),
                                                                          dense_batch())
     ref = detector_params_from_flax({"params": params[0]})
