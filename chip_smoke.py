@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
              the shapes the bench pass gave it (inputs recorded during the
              pass), plus fixed pair_min cases (C=2048, P=256, Q=512 with
              masks 1 km from the origin; C=7, P=100, Q=300 with duplicated
-             points), radius_scan at k=8 besides the claims' k=1, and a full
+             points; the streamed mode at C=2, P=20,000, Q=15,000 on a
+             0.25 m lattice 1 km out, both sides partly masked),
+             radius_scan at k=8 besides the claims' k=1, and a full
              CC of a golden chunk, all bit for bit; times of kernel, plain
              version and library yardstick, and the bound from the H100 data
              sheet; for radius_scan also its block plan's pair counts and
@@ -4464,6 +4466,25 @@ def main():
         d_ms, c_ms = kernel_times(lambda: pm_mod.pair_min(*args), "pair_min_kernel", 50)
         log(f"# pair_min ({label}): device {d_ms:.5f} ms, call {c_ms:.5f} ms, bound "
             f"{pair_min_bound(*args)[0]:.5f} ms")
+    # the streamed mode (a side past the tile's 14,464 points): C = 2, ties on
+    # a 0.25 m lattice 1 km from the origin across its tiles and slices, both
+    # sides partly masked
+    # (the tiled row below keeps the bench call's times, d_ms and c_ms)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    C, P, Q = (2, 2_000, 1_500) if rehearse else (2, 20_000, 15_000)
+    st_args = ((torch.randint(0, 40, (C, P, 3), generator=g) * 0.25 + 1000.0).to(dev),
+               (torch.randint(0, 40, (C, Q, 3), generator=g) * 0.25 + 1000.0).to(dev),
+               (torch.rand((C, P), generator=g) > 0.2).to(dev),
+               (torch.rand((C, Q), generator=g) > 0.3).to(dev))
+    label = f"streamed C={C} P={P} Q={Q} lattice +1km"
+    s0 = pm_mod.pair_min.stream_launches
+    pair_min_check(pm_mod, label, st_args)
+    if not rehearse and pm_mod.pair_min.stream_launches != s0 + 1:
+        fail(f"pair_min ({label}) did not take the streamed mode")
+    st_d, st_c = kernel_times(lambda: pm_mod.pair_min(*st_args), "pair_min_stream_kernel", 10)
+    log(f"# pair_min ({label}): device {st_d:.5f} ms, call {st_c:.5f} ms, bound "
+        f"{pair_min_bound(*st_args)[0]:.5f} ms")
+    del st_args
     a, b, am, bm = recs["pair_min"].value
     C, P, Q = a.shape[0], a.shape[1], b.shape[1]
     p_ms = cuda_time_ms(lambda: pm_mod.pair_min_plain(a, b, am, bm), 5)

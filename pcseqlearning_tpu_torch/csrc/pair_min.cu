@@ -41,21 +41,46 @@
 //
 // Streamed mode, for sides too large for the shared-memory tile (max(P, Q)
 // above 14,464 points; ImplicitReconstructionHead.loss calls C = 1, P =
-// 27 n samples, Q = n returns, n = 32,768 at full width: 2.9e10 pairs each
-// way). Again operations bound it, and with one component the whole card
-// must share one row set, so the scanned side is cut too:
-//   * A block owns S_ROWS rows of one direction (S_RPT rows a thread, kept
-//     in registers, so each staged point read from shared memory serves
-//     S_RPT distances) and one slice of S_SLICE scanned points, which it
-//     streams through shared memory S_CHUNK points at a time. A masked
-//     point is staged with NaN coordinates: its distance is NaN, which no
-//     strict < takes, so it costs no branch.
-//   * Within a block the scan runs in index order with a strict <, which
-//     keeps the first argmin. Across the slices of a row the minima merge
-//     with a 64-bit atomicMin on (d2 bits << 32 | index): d2 >= 0, so its
+// 27 n samples, Q = n returns, n = 32,768 at full width: 2.9e10 pairs).
+// Operations bound it, at the card's unfused float32 rate: a pair's 8
+// operations may not fuse (see above), which halves the 67 TFLOP/s that the
+// bound counts, and each direction adds its compares and selects; bytes are
+// only the points and the keys. So each d2 is computed once and feeds both
+// minima, p's row and q's column:
+//   * The rows are the larger side (a and b swap roles when Q > P; the
+//     distance has the same bits either way, y - x being -(x - y)). A block
+//     owns one rectangle of one component, a tile of rows (whole passes, at
+//     most S_TILE) by S_SLICE columns, and the grid tiles each component's
+//     [rows, columns] exactly once. The block stages its columns in shared
+//     memory as (x, y, z, mask) and runs passes of S_WARPS * S_RPW rows:
+//     warp w holds rows w * S_RPW to w * S_RPW + S_RPW - 1 of the pass (its
+//     group) in registers, the same rows in every lane (a register-blocked
+//     tile of S_RPW rows by one column a lane), and walks the slice in steps
+//     of S_STEP columns, lane l taking columns i * 32 + l of the step. A
+//     pair then costs 12 instructions: its 8 operations, a compare and two
+//     selects for the row's minimum and first argmin (in registers across
+//     the whole slice), and one min for the column's minimum over the
+//     group.
+//   * First argmin. A lane takes its columns in ascending order with a
+//     strict <; after each pass a butterfly over the lanes takes each row's
+//     lexicographic minimum of (d2, index). After each step the block merges
+//     the S_WARPS group minima of each column into the slice's column keys
+//     in shared memory in group order (row order), a later group only when
+//     strictly smaller, so a key holds the first group that reaches the
+//     minimum; at the block's end that group's distances are computed again
+//     and its first valid row with an equal d2 is the argmin. Across blocks
+//     a 64-bit atomicMin on (d2 bits << 32 | index) merges: d2 >= 0, so its
 //     float bits order as unsigned integers, and equal d2 go to the lower
-//     index, the first argmin again. Keys start at (+inf bits, 0), which an
-//     empty row keeps: +inf and index 0. A finish kernel unpacks the keys.
+//     index whatever the order of arrival, so a run repeats bit for bit. One
+//     atomic goes out per (row, slice) and per (column, row tile). Keys start
+//     at (+inf bits, 0), which an empty row keeps: +inf and index 0.
+//   * Masks are predicates, never a penalty on the distance: the row's
+//     compare is anded with the column's mask (one predicate per staged
+//     column), and the column's min is predicated on the row's; a warp whose
+//     rows are all valid takes a loop without row masks. A masked point
+//     keeps its own result; a pair of masked points feeds nothing. NaN wins
+//     no strict < and no min.
+//     A finish kernel unpacks the keys.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -166,79 +191,165 @@ __global__ void __launch_bounds__(THREADS)
   out_i[row] = arg;
 }
 
-#define S_THREADS 128             // threads per block, streamed mode
-#define S_RPT 2                   // rows a thread
-#define S_ROWS (S_THREADS * S_RPT)  // rows a block
-#define S_CHUNK 1024              // scanned points staged at a time (16 KB)
-#define S_SLICE 4096              // scanned points a block covers
+#define S_WARPS 8      // warps a block, streamed mode
+#define S_THREADS 256  // threads a block (S_WARPS * 32)
+#define S_RPW 14       // rows a warp holds in registers during a pass
+#define S_STEP 256     // columns a step covers (S_STEP / 32 a lane)
+#define S_TILE 1120    // the most rows a block covers, in passes of S_WARPS * S_RPW
+#define S_SLICE 4096   // columns a block stages, in steps of S_STEP
+// shared memory: the staged columns, their keys, a step's partials (104 KB)
+#define S_SMEM (S_SLICE * 16 + S_SLICE * 8 + S_WARPS * S_STEP * 4)
+
+static_assert(S_THREADS == S_WARPS * 32, "a warp is 32 threads");
+static_assert(S_STEP == S_THREADS, "a step's merge takes one column a thread");
+static_assert(S_STEP % 32 == 0 && S_SLICE % S_STEP == 0, "steps tile the slice");
+static_assert(S_TILE % (2 * S_WARPS * S_RPW) == 0, "passes tile the row tile and its half");
+static_assert(S_RPW < 32, "a pass's row masks are the low bits of one ballot");
 
 __global__ void pair_min_stream_init(unsigned long long* __restrict__ keys, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) keys[i] = (unsigned long long)__float_as_uint(INFINITY) << 32;
 }
 
-__global__ void __launch_bounds__(S_THREADS)
-    pair_min_stream_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                           const uint8_t* __restrict__ a_mask, const uint8_t* __restrict__ b_mask,
-                           int C, int P, int Q, int fwd_tiles, int fwd_slices, int bwd_slices,
-                           unsigned long long* __restrict__ fwd_keys,
-                           unsigned long long* __restrict__ bwd_keys) {
-  __shared__ float4 sm[S_CHUNK];
-  const int fwd_blocks = fwd_tiles * fwd_slices;
-  const int s = blockIdx.x;
-  const bool fwd = s < fwd_blocks;
-  const int t = fwd ? s : s - fwd_blocks;
-  const int slices = fwd ? fwd_slices : bwd_slices;
-  const int tile = t / slices, slice = t % slices;
-  const int nrows = fwd ? P : Q, nscan = fwd ? Q : P;
-  const int j0 = slice * S_SLICE;
-  const int j1 = min(nscan, j0 + S_SLICE);
-  for (long long c = blockIdx.y; c < C; c += gridDim.y) {
-    const float* rows = fwd ? a + c * P * 3 : b + c * Q * 3;
-    const float* scan = fwd ? b + c * Q * 3 : a + c * P * 3;
-    const uint8_t* scan_mask = fwd ? b_mask + c * Q : a_mask + c * P;
-    unsigned long long* keys = fwd ? fwd_keys + c * P : bwd_keys + c * Q;
-    float x[S_RPT], y[S_RPT], z[S_RPT], best[S_RPT];
-    int arg[S_RPT];
+// One step of a warp's pass: the lane's S_STEP / 32 columns against the
+// warp's S_RPW rows (row r valid where bit r of rmask is set; all of them
+// where ALL). The rows' minima and first argmins update in registers; each
+// column's minimum over the valid rows (a min, no index) goes to the warp's
+// partials of the step.
+template <bool ALL>
+__device__ __forceinline__ void stream_step(const float4* __restrict__ cols, int k0, int j0,
+                                            int lane, unsigned rmask, const float (&x)[S_RPW],
+                                            const float (&y)[S_RPW], const float (&z)[S_RPW],
+                                            float (&best)[S_RPW], int (&arg)[S_RPW],
+                                            float* __restrict__ pd) {
+#pragma unroll 2
+  for (int i = 0; i < S_STEP / 32; ++i) {
+    const int k = k0 + i * 32 + lane;
+    const float4 p = cols[k];
+    const bool live = __float_as_int(p.w) != 0;  // the column's mask
+    const int j = j0 + k;
+    float cd = INFINITY;
 #pragma unroll
-    for (int r = 0; r < S_RPT; ++r) {
-      const int row = tile * S_ROWS + r * S_THREADS + threadIdx.x;
-      const bool ok = row < nrows;
-      x[r] = ok ? rows[3 * row] : 0.f;
-      y[r] = ok ? rows[3 * row + 1] : 0.f;
-      z[r] = ok ? rows[3 * row + 2] : 0.f;
-      best[r] = INFINITY;
-      arg[r] = 0;
-    }
-    for (int base = j0; base < j1; base += S_CHUNK) {
-      const int n = min(S_CHUNK, j1 - base);
-      __syncthreads();  // the previous chunk has been read
-      for (int k = threadIdx.x; k < n; k += S_THREADS) {
-        const int j = base + k;
-        sm[k] = scan_mask[j] ? make_float4(scan[3 * j], scan[3 * j + 1], scan[3 * j + 2],
-                                           __int_as_float(j))
-                             : make_float4(NAN, NAN, NAN, __int_as_float(j));
+    for (int r = 0; r < S_RPW; ++r) {
+      const float d = d2_direct(x[r], y[r], z[r], p);
+      if (live && d < best[r]) {  // strict: the lane's columns ascend
+        best[r] = d;
+        arg[r] = j;
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < n; ++k) {
-        const float4 p = sm[k];
+      if (ALL || ((rmask >> r) & 1u)) cd = fminf(cd, d);  // NaN never wins
+    }
+    pd[i * 32 + lane] = cd;
+  }
+}
+
+__global__ void __launch_bounds__(S_THREADS, 2)
+    pair_min_stream_kernel(const float* __restrict__ rows, const float* __restrict__ cols,
+                           const uint8_t* __restrict__ row_mask,
+                           const uint8_t* __restrict__ col_mask, int C, int nrows, int ncols,
+                           int tile_rows, int slices, unsigned long long* __restrict__ row_keys,
+                           unsigned long long* __restrict__ col_keys) {
+  extern __shared__ float4 sm[];
+  float4* staged = sm;                      // [S_SLICE] the slice's columns
+  float* kd = (float*)(staged + S_SLICE);   // [S_SLICE] their minima over the tile's rows
+  int* kg = (int*)(kd + S_SLICE);           //           and the first group holding it
+  float* pd = (float*)(kg + S_SLICE);       // [S_WARPS][S_STEP] a step's partial minima
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x / slices, slice = blockIdx.x % slices;
+  const int r0 = tile * tile_rows, r1 = min(nrows, r0 + tile_rows);
+  const int j0 = slice * S_SLICE, n = min(S_SLICE, ncols - j0);
+  const int steps = (n + S_STEP - 1) / S_STEP;
+  const int passes = (r1 - r0 + S_WARPS * S_RPW - 1) / (S_WARPS * S_RPW);
+  for (long long c = blockIdx.y; c < C; c += gridDim.y) {
+    const float* rp = rows + c * nrows * 3;
+    const float* cp = cols + c * ncols * 3;
+    const uint8_t* rm = row_mask + c * nrows;
+    const uint8_t* cm = col_mask + c * ncols;
+    __syncthreads();  // the previous component's keys have been read
+    for (int k = threadIdx.x; k < steps * S_STEP; k += S_THREADS) {
+      const int j = j0 + k;  // past the slice: a masked column, never flushed
+      staged[k] = k < n ? make_float4(cp[3 * j], cp[3 * j + 1], cp[3 * j + 2],
+                                      __int_as_float(cm[j] ? 1 : 0))
+                        : make_float4(0.f, 0.f, 0.f, __int_as_float(0));
+      kd[k] = INFINITY;
+      kg[k] = 0;
+    }
+    __syncthreads();
+    for (int pass = 0; pass < passes; ++pass) {
+      const int rb = r0 + pass * (S_WARPS * S_RPW) + warp * S_RPW;  // the warp's first row
+      const unsigned rmask =
+          __ballot_sync(0xffffffffu, lane < S_RPW && rb + lane < r1 && rm[rb + lane]);
+      float x[S_RPW], y[S_RPW], z[S_RPW], best[S_RPW];
+      int arg[S_RPW];
 #pragma unroll
-        for (int r = 0; r < S_RPT; ++r) {
-          const float d = d2_direct(x[r], y[r], z[r], p);
-          if (d < best[r]) {  // strict: ties keep the first index; NaN never
-            best[r] = d;
-            arg[r] = __float_as_int(p.w);
+      for (int r = 0; r < S_RPW; ++r) {
+        const bool ok = rb + r < r1;
+        x[r] = ok ? rp[3 * (rb + r)] : 0.f;
+        y[r] = ok ? rp[3 * (rb + r) + 1] : 0.f;
+        z[r] = ok ? rp[3 * (rb + r) + 2] : 0.f;
+        best[r] = INFINITY;
+        arg[r] = 0;
+      }
+      const bool all = rmask == (1u << S_RPW) - 1u;  // warp-uniform
+      float* pdw = pd + warp * S_STEP;
+      for (int s = 0; s < steps; ++s) {
+        if (all)
+          stream_step<true>(staged, s * S_STEP, j0, lane, rmask, x, y, z, best, arg, pdw);
+        else
+          stream_step<false>(staged, s * S_STEP, j0, lane, rmask, x, y, z, best, arg, pdw);
+        __syncthreads();
+        // column s * S_STEP + t takes the warps' partials in warp order, that
+        // is in row order: a later group only when strictly smaller
+        const int k = s * S_STEP + threadIdx.x;
+        float d = kd[k];
+        int g = kg[k];
+#pragma unroll
+        for (int w = 0; w < S_WARPS; ++w) {
+          const float e = pd[w * S_STEP + threadIdx.x];
+          if (e < d) {
+            d = e;
+            g = pass * S_WARPS + w;
           }
         }
+        kd[k] = d;
+        kg[k] = g;
+        __syncthreads();  // the partials are rewritten next step
       }
-    }
+      // each row's lexicographic minimum of (d2, index) over the lanes; lane
+      // r sends row r's key
+      unsigned long long mine = 0;
 #pragma unroll
-    for (int r = 0; r < S_RPT; ++r) {
-      const int row = tile * S_ROWS + r * S_THREADS + threadIdx.x;
-      if (row < nrows && best[r] < INFINITY)
-        atomicMin(keys + row, ((unsigned long long)__float_as_uint(best[r]) << 32) |
-                                  (unsigned int)arg[r]);
+      for (int r = 0; r < S_RPW; ++r) {
+        unsigned long long key =
+            ((unsigned long long)__float_as_uint(best[r]) << 32) | (unsigned int)arg[r];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const unsigned long long o = __shfl_xor_sync(0xffffffffu, key, off);
+          key = o < key ? o : key;
+        }
+        if (lane == r) mine = key;
+      }
+      if (lane < S_RPW && rb + lane < r1 &&
+          (unsigned int)(mine >> 32) != __float_as_uint(INFINITY))
+        atomicMin(row_keys + c * nrows + rb + lane, mine);
+    }
+    // each column's first argmin: the first valid row of its first minimal
+    // group (group g is warp g % S_WARPS of pass g / S_WARPS, rows r0 +
+    // g * S_RPW onward) whose distance, computed again, equals the minimum
+    for (int k = threadIdx.x; k < n; k += S_THREADS) {
+      const float m = kd[k];
+      if (!(m < INFINITY)) continue;
+      const float4 p = staged[k];
+      const int g0 = r0 + kg[k] * S_RPW;
+      int arg = g0;
+#pragma unroll
+      for (int r = S_RPW - 1; r >= 0; --r) {  // descending: the last match taken is the first
+        const int row = g0 + r;
+        if (row < r1 && rm[row] &&
+            d2_direct(rp[3 * row], rp[3 * row + 1], rp[3 * row + 2], p) == m)
+          arg = row;
+      }
+      atomicMin(col_keys + c * ncols + j0 + k,
+                ((unsigned long long)__float_as_uint(m) << 32) | (unsigned int)arg);
     }
   }
 }
@@ -253,6 +364,27 @@ __global__ void pair_min_stream_finish(const unsigned long long* __restrict__ ke
   }
 }
 
+// Rows a block covers: whole passes, from S_TILE down to S_TILE / 2 rows; a
+// smaller tile only where its blocks fill the waves of resident blocks better
+// by over half a percent of them (each tile adds an atomic a column and a
+// staging of the slice). At the head's call (884,736 rows by 8 slices, 264
+// resident blocks on an H100) S_TILE rows give 6,320 blocks, 99.7% of 24
+// waves.
+static int stream_tile(int nrows, long long per_tile, int slots) {
+  int best = S_TILE;
+  double best_fill = -1.0;
+  for (int t = S_TILE; t >= S_TILE / 2; t -= S_WARPS * S_RPW) {
+    const long long blocks = (long long)((nrows + t - 1) / t) * per_tile;
+    const long long waves = (blocks + slots - 1) / slots;
+    const double fill = (double)blocks / (double)(waves * slots);
+    if (fill > best_fill + 0.005) {
+      best_fill = fill;
+      best = t;
+    }
+  }
+  return best;
+}
+
 // The streamed mode: keys is scratch of C * (P + Q) 64-bit words (forward
 // rows first). Four launches on the stream: init, scan, two finishes.
 static int pair_min_stream(const void* a, const void* b, const void* a_mask, const void* b_mask,
@@ -262,14 +394,31 @@ static int pair_min_stream(const void* a, const void* b, const void* a_mask, con
   unsigned long long* bk = fk + (long long)C * P;
   const long long n = (long long)C * (P + Q);
   pair_min_stream_init<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(fk, n);
-  const int fwd_tiles = (P + S_ROWS - 1) / S_ROWS, bwd_tiles = (Q + S_ROWS - 1) / S_ROWS;
-  const int fwd_slices = (Q + S_SLICE - 1) / S_SLICE, bwd_slices = (P + S_SLICE - 1) / S_SLICE;
-  const long long blocks = (long long)fwd_tiles * fwd_slices + (long long)bwd_tiles * bwd_slices;
-  if (blocks > 0) {
-    const dim3 grid((unsigned)blocks, (unsigned)(C < 65535 ? C : 65535));
-    pair_min_stream_kernel<<<grid, S_THREADS, 0, stream>>>(
-        (const float*)a, (const float*)b, (const uint8_t*)a_mask, (const uint8_t*)b_mask, C, P,
-        Q, fwd_tiles, fwd_slices, bwd_slices, fk, bk);
+  const bool swap = Q > P;  // the larger side holds the rows
+  const int nrows = swap ? Q : P, ncols = swap ? P : Q;
+  const long long slices = (ncols + S_SLICE - 1) / S_SLICE;
+  const int cy = C < 65535 ? C : 65535;
+  if (nrows > 0 && slices > 0) {
+    cudaError_t e = cudaFuncSetAttribute(pair_min_stream_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+    if (e == cudaSuccess)  // two blocks an SM: 2 x 104 KB of shared memory
+      e = cudaFuncSetAttribute(pair_min_stream_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_min_stream_kernel,
+                                                        S_THREADS, S_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const int tile_rows = stream_tile(nrows, slices * cy, sms * (per_sm > 0 ? per_sm : 1));
+    const long long tiles = (nrows + tile_rows - 1) / tile_rows;
+    if (tiles * slices > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)(tiles * slices), (unsigned)cy);
+    pair_min_stream_kernel<<<grid, S_THREADS, S_SMEM, stream>>>(
+        (const float*)(swap ? b : a), (const float*)(swap ? a : b),
+        (const uint8_t*)(swap ? b_mask : a_mask), (const uint8_t*)(swap ? a_mask : b_mask), C,
+        nrows, ncols, tile_rows, (int)slices, swap ? bk : fk, swap ? fk : bk);
   }
   const long long nf = (long long)C * P, nb = (long long)C * Q;
   if (nf > 0)

@@ -29,6 +29,8 @@ sample).
 ``write_waymo_tfrecord`` writes raw Waymo frames (range images,
 calibrations, labels, segmentation labels) as a TFRecord, through the
 port's own wire-format writer, for the offline converter.
+``reconstruction_keys`` is the ``pair_min`` call of
+``ImplicitReconstructionHead.loss`` on a synthetic cloud.
 """
 
 from __future__ import annotations
@@ -159,6 +161,31 @@ def make_rigid_scene(seed, C=5, per=60, rot_deg=8.0, trans=0.4):
     moving = np.concatenate([p for p, _ in pts]).astype(np.float32)
     ref = np.concatenate([q for _, q in pts]).astype(np.float32)
     return moving, np.concatenate(comp).astype(np.int32), ref, np.stack(gt_T)
+
+
+def reconstruction_keys(n, seed=0, invalid=0.0):
+    """``pair_min``'s arguments in ``ImplicitReconstructionHead.loss`` for n
+    returns in two batches (uniform in 80 x 80 x 6 m) and their 27 samples
+    each (a 3^3 grid of offsets 0.2 m apart): the keys (1e3 * batch, polar
+    angle, azimuth) of the samples [1, 27 n, 3] and of the returns [1, n, 3],
+    float32, and their masks; a share ``invalid`` of the returns is masked,
+    and their samples with them. NumPy arrays."""
+    rng = np.random.RandomState(seed)
+    bidx = (np.arange(n) >= n // 2).astype(np.float32)
+    xyz = (rng.rand(n, 3) * [80, 80, 6] - [40, 40, 2]).astype(np.float32)
+    lin = np.linspace(-0.2, 0.2, 3, dtype=np.float32)
+    offs = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    smp = (xyz[:, None] + offs[None]).reshape(-1, 3)
+
+    def key(p, bi):
+        rho = np.maximum(np.linalg.norm(p, axis=-1), np.float32(1e-4))
+        pol = np.arccos(np.clip(p[:, 2] / rho, -1.0, 1.0))
+        return np.stack([bi * np.float32(1e3), pol, np.arctan2(p[:, 1], p[:, 0])],
+                        -1).astype(np.float32)
+
+    valid = rng.rand(n) >= invalid
+    return (key(smp, np.repeat(bidx, 27))[None], key(xyz, bidx)[None],
+            np.repeat(valid, 27)[None], valid[None])
 
 
 def write_waymo_sequence(root, frames, gt, name, processed_data_tag="waymo_processed_data_v0_5_0"):

@@ -32,7 +32,7 @@ from pcseqlearning_tpu_torch.ops import hash_graph as thg
 from pcseqlearning_tpu_torch.ops import pair_min as tpm
 from pcseqlearning_tpu_torch.ops import sorted_grid as tsg
 from pcseqlearning_tpu_torch.preprocessing import registration as treg
-from pcseqlearning_tpu_torch.scene import make_rigid_scene
+from pcseqlearning_tpu_torch.scene import make_rigid_scene, reconstruction_keys
 from pcseqlearning_tpu_torch.utils import telemetry
 
 T = torch.as_tensor
@@ -206,14 +206,10 @@ def test_cuda_radius_scan_window_bit_equal(cuda_device, k):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("C,P,Q", [(1, 20_000, 700), (1, 900, 30_000), (2, 15_000, 5_000),
-                                   (1, 27 * 4096, 4096)])
-def test_cuda_pair_min_streamed_mode_bit_equal(cuda_device, C, P, Q):
-    """Sides past the tile's 14,464 points take the streamed mode: bit for
-    bit the plain version (in tiles), ties across its slices and chunks
-    (points on a lattice) going to the first index, empty rows, 1 km from
-    the origin; counted in ``stream_launches``."""
+def _stream_lattice(C, P, Q):
+    """Points on a 0.25 m lattice 1 km from the origin (ties across the
+    streamed mode's slices and tiles), 20% masked, a third of the last
+    component's a side masked, component 0's b side masked when C > 1."""
     rng = np.random.RandomState(P + Q)
     a = rng.randint(0, 40, (C, P, 3)).astype(np.float32) * 0.25 + 1000.0
     b = rng.randint(0, 40, (C, Q, 3)).astype(np.float32) * 0.25 + 1000.0
@@ -221,7 +217,53 @@ def test_cuda_pair_min_streamed_mode_bit_equal(cuda_device, C, P, Q):
     am[-1, : P // 3] = False
     if C > 1:
         bm[0] = False  # every forward row of component 0 is empty
-    args = [T(x).to(cuda_device) for x in (a, b, am, bm)]
+    return a, b, am, bm
+
+
+def _stream_mixed_masks():
+    """C = 3, masks mixed on both sides: random halves; a all valid against
+    30% of b; a masked in runs of 27 (a head's samples) against all of b."""
+    rng = np.random.RandomState(11)
+    a = (rng.rand(3, 16_000, 3) * 50 + 1000.0).astype(np.float32)
+    b = (rng.rand(3, 5_000, 3) * 50 + 1000.0).astype(np.float32)
+    am = np.stack([rng.rand(16_000) > 0.5, np.ones(16_000, bool),
+                   np.repeat(rng.rand(16_000 // 27 + 1) > 0.3, 27)[:16_000]])
+    bm = np.stack([rng.rand(5_000) > 0.5, rng.rand(5_000) > 0.7, np.ones(5_000, bool)])
+    return a, b, am, bm
+
+
+def _stream_border_ties():
+    """A 4-step lattice (64 distinct points, so every distance ties many
+    times), rows past two tile borders and columns past two slice borders
+    (S_TILE 1024, S_SLICE 4096), the points at the borders duplicated."""
+    rng = np.random.RandomState(13)
+    a = rng.randint(0, 4, (1, 20_000, 3)).astype(np.float32)
+    b = rng.randint(0, 4, (1, 9_000, 3)).astype(np.float32)
+    a[0, 1024], a[0, 2048] = a[0, 1023], a[0, 2047]
+    b[0, 4096], b[0, 8192] = b[0, 4095], b[0, 8191]
+    return a, b, rng.rand(1, 20_000) > 0.1, rng.rand(1, 9_000) > 0.1
+
+
+_STREAM_CASES = {
+    "1x20000x700": lambda: _stream_lattice(1, 20_000, 700),
+    "1x900x30000": lambda: _stream_lattice(1, 900, 30_000),
+    "2x15000x5000": lambda: _stream_lattice(2, 15_000, 5_000),
+    "1x110592x4096": lambda: _stream_lattice(1, 27 * 4096, 4096),
+    "3x16000x5000_mixed_masks": _stream_mixed_masks,
+    "heads_two_batch_keys": lambda: reconstruction_keys(8192, seed=12, invalid=0.05),
+    "lattice_ties_across_borders": _stream_border_ties,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_STREAM_CASES))
+def test_cuda_pair_min_streamed_mode_bit_equal(cuda_device, case):
+    """Sides past the tile's 14,464 points take the streamed mode: bit for
+    bit the plain version (in tiles), ties across its slices and tiles
+    going to the first index, masked and empty rows on both sides, P much
+    larger and much smaller than Q, C > 1, the reconstruction head's keys;
+    counted in ``stream_launches``."""
+    args = [T(x).to(cuda_device) for x in _STREAM_CASES[case]()]
     n0, s0 = tpm.pair_min.launches, tpm.pair_min.stream_launches
     got = tpm.pair_min(*args)
     torch.cuda.synchronize()
@@ -229,6 +271,9 @@ def test_cuda_pair_min_streamed_mode_bit_equal(cuda_device, C, P, Q):
     want = tpm.pair_min_plain(*args)
     for g, w in zip(got, want):
         assert g.is_contiguous() and torch.equal(g, w)
+    again = tpm.pair_min(*args)  # the atomics' order of arrival changes nothing
+    for g, w in zip(again, got):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

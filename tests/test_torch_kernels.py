@@ -27,6 +27,7 @@ from pcseqlearning_tpu.ops import pallas_scan as jscan
 from pcseqlearning_tpu.ops import pallas_tpu as jpt
 from pcseqlearning_tpu_torch.ops import pair_min as tpm
 from pcseqlearning_tpu_torch.ops import sorted_grid as tsg
+from pcseqlearning_tpu_torch.scene import reconstruction_keys
 
 T = torch.as_tensor
 # one intra-op thread: the suite runs several pytest workers on the same cores
@@ -306,56 +307,213 @@ def test_pair_min_plain_chunked_equals_unchunked(block):
     assert np.isinf(whole[2].numpy()[1]).all() and (whole[3].numpy()[1] == 0).all()
 
 
-def _stream_emulation(a, b, am, bm, rows_per_block, slice_len, chunk):
-    """csrc/pair_min.cu's streamed mode in NumPy: per (row tile, slice)
-    block, each row scans its slice chunk by chunk in index order with a
-    strict <, masked points NaN; the slices merge by the minimum of the
-    64-bit key (d2 bits << 32 | index) from (+inf, 0)."""
-    C, P, Q = a.shape[0], a.shape[1], b.shape[1]
-    out = []
-    for rows, scan, mask, nrows, nscan in ((a, b, bm, P, Q), (b, a, am, Q, P)):
-        keys = np.full((C, nrows), np.uint64(np.float32(np.inf).view(np.uint32)) << np.uint64(32))
-        for c in range(C):
-            pts = np.where(mask[c][:, None], scan[c], np.float32(np.nan))
-            for t0 in range(0, nrows, rows_per_block):
-                r = np.arange(t0, min(nrows, t0 + rows_per_block))
-                for j0 in range(0, nscan, slice_len):
-                    best = np.full(len(r), np.inf, np.float32)
-                    arg = np.zeros(len(r), np.int64)
-                    for base in range(j0, min(nscan, j0 + slice_len), chunk):
-                        for j in range(base, min(nscan, j0 + slice_len, base + chunk)):
-                            dd = rows[c, r] - pts[j]
-                            dist = (dd[:, 0] * dd[:, 0] + dd[:, 1] * dd[:, 1]) + dd[:, 2] * dd[:, 2]
-                            with np.errstate(invalid="ignore"):
-                                take = dist < best
-                            best, arg = np.where(take, dist, best), np.where(take, j, arg)
-                    fin = best < np.inf
-                    key = (best.astype(np.float32).view(np.uint32).astype(np.uint64)
-                           << np.uint64(32)) | arg.astype(np.uint64)
-                    keys[c, r[fin]] = np.minimum(keys[c, r[fin]], key[fin])
-        out += [(keys >> np.uint64(32)).astype(np.uint32).view(np.float32),
-                (keys & np.uint64(0xFFFFFFFF)).astype(np.int32)]
-    return out
+def _stream_sizes(scale, half=False):
+    """csrc/pair_min.cu's streamed-mode sizes, read from its #defines: as
+    they are (scale 1), or divided so that a small case crosses every
+    border (scale 0: 4 lanes, a quarter of the warps and of the rows a warp,
+    2 passes a tile, the slice by 64). ``half`` takes the smallest tile the
+    launch may choose, S_TILE / 2. The kernel's static_asserts hold."""
+    z = {k: _cu_define("pair_min.cu", f"S_{k}")
+         for k in ("WARPS", "THREADS", "RPW", "STEP", "TILE", "SLICE")}
+    assert z["THREADS"] == 32 * z["WARPS"] == z["STEP"]
+    assert z["TILE"] % (2 * z["WARPS"] * z["RPW"]) == 0 and z["SLICE"] % z["STEP"] == 0
+    if scale:
+        lanes, warps, rpw, passes = 32, z["WARPS"], z["RPW"], z["TILE"] // (z["WARPS"] * z["RPW"])
+        slice_len = z["SLICE"]
+    else:
+        lanes, warps, rpw, passes, slice_len = 4, z["WARPS"] // 4, z["RPW"] // 4, 2, z["SLICE"] // 64
+    step = z["STEP"] // 32 * lanes  # columns a lane takes in a step, as in the kernel
+    tile = warps * rpw * (passes // 2 if half else passes)
+    assert slice_len % step == 0
+    return dict(lanes=lanes, warps=warps, rpw=rpw, step=step, tile=tile, slice_len=slice_len)
+
+
+def _first_min(d, ok, axis):
+    """A strict-< chain from (+inf, 0) along ``axis``, in index order, over
+    the entries where ``ok``: the minimum and its first position, (+inf, 0)
+    where no entry is below +inf (NaN never is)."""
+    v = np.where(ok & (d < np.inf), d, np.float32(np.inf))
+    i = v.argmin(axis)
+    m = np.take_along_axis(v, np.expand_dims(i, axis), axis).squeeze(axis)
+    return m, np.where(m < np.inf, i, 0)
+
+
+def _key(d, i):
+    """The kernel's 64-bit key: d2 bits << 32 | index."""
+    d, i = np.asarray(d, np.float32), np.asarray(i)
+    return (d.view(np.uint32).astype(np.uint64) << np.uint64(32)) | i.astype(np.uint64)
+
+
+def _d2(x, y):
+    """(x - y) squared and summed as float32, (dx2 + dy2) + dz2, like the kernel."""
+    dd = x - y
+    return (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]) + dd[..., 2] * dd[..., 2]
+
+
+def _stream_design(a, b, am, bm, lanes, warps, rpw, step, tile, slice_len, cover=None):
+    """csrc/pair_min.cu's streamed mode in NumPy, block by block. The larger
+    side holds the rows. A block takes ``tile`` rows by ``slice_len``
+    columns of one component and stages the columns (padded to whole steps
+    with masked ones); pass p gives warp w the group g = p * warps + w of
+    rows tile_start + g * rpw onward, the same rows in every lane; step s
+    gives lane l columns s * step + i * lanes + l. Each d2 is computed once,
+    as (row - column) in float32, and feeds the lane's strict-< chain of its
+    row (columns ascending, where the column is valid) and the group's min
+    of its column (over the valid rows). The step's group minima merge into
+    the slice's column keys in group order, a later group only when strictly
+    smaller; at the block's end the key's group is computed again and its
+    first valid row with an equal d2 is the argmin. The lanes' row minima
+    merge by the lexicographic (d2, index) minimum, and blocks by the 64-bit
+    key minimum from (+inf, 0). ``cover`` [C, rows, columns], where given,
+    counts every pair the scan computes."""
+    inf = np.float32(np.inf)
+    swap = b.shape[1] > a.shape[1]
+    rows, cols, rmask, cmask = (b, a, bm, am) if swap else (a, b, am, bm)
+    C, nr, nc = rows.shape[0], rows.shape[1], cols.shape[1]
+    rkeys, ckeys = np.full((C, nr), _key(inf, 0)), np.full((C, nc), _key(inf, 0))
+    cpl = step // lanes
+    for c in range(C):
+        for r0 in range(0, nr, tile):
+            r1 = min(nr, r0 + tile)
+            for j0 in range(0, nc, slice_len):
+                n = min(slice_len, nc - j0)
+                steps = -(-n // step)
+                staged = np.zeros((steps * step, 3), np.float32)
+                staged[:n] = cols[c, j0:j0 + n]
+                live = np.zeros(steps * step, bool)
+                live[:n] = cmask[c, j0:j0 + n]
+                kd, kg = np.full(steps * step, inf), np.zeros(steps * step, np.int64)
+                for p, p0 in enumerate(range(r0, r1, warps * rpw)):
+                    rid = p0 + np.arange(warps * rpw).reshape(warps, rpw)
+                    ok = rid < r1
+                    at = np.minimum(rid, nr - 1)
+                    x = np.where(ok[..., None], rows[c, at], np.float32(0))
+                    valid = ok & rmask[c, at]
+                    best, arg = np.full((warps, rpw, lanes), inf), np.zeros((warps, rpw, lanes),
+                                                                            np.int64)
+                    for s in range(steps):
+                        k = s * step + np.arange(step).reshape(cpl, lanes)
+                        d = _d2(x[:, :, None, None, :], staged[k][None, None])  # [w, r, i, l]
+                        m, i = _first_min(d, live[k][None, None], 2)  # [warps, rpw, lanes]
+                        take = m < best  # this step's columns come after the earlier steps'
+                        best = np.where(take, m, best)
+                        arg = np.where(take, j0 + k[i, np.arange(lanes)], arg)
+                        cd = np.where(valid[:, :, None, None] & (d < inf), d, inf).min(1)
+                        ks = k.reshape(-1)
+                        m, w = _first_min(np.concatenate([kd[ks][None], cd.reshape(warps, step)]),
+                                          np.ones((1, 1), bool), 0)  # the key first, then groups
+                        kg[ks] = np.where(w == 0, kg[ks], p * warps + w - 1)
+                        kd[ks] = np.where(w == 0, kd[ks], m)
+                        if cover is not None:
+                            cover[c, rid[ok][:, None], (j0 + ks[ks < n])[None, :]] += 1
+                    key = _key(best, arg).min(2)  # the butterfly over the lanes
+                    send = ok & ((key >> np.uint64(32)) != _key(inf, 0) >> np.uint64(32))
+                    np.minimum.at(rkeys[c], rid[send], key[send])
+                fin = np.nonzero(kd[:n] < inf)[0]
+                grp = r0 + kg[fin, None] * rpw + np.arange(rpw)[None]  # the key's group
+                hit = (grp < r1) & rmask[c, np.minimum(grp, nr - 1)] & (
+                    _d2(rows[c, np.minimum(grp, nr - 1)], staged[fin][:, None]) == kd[fin, None])
+                assert hit.any(1).all()
+                first = grp[np.arange(len(fin)), hit.argmax(1)]
+                np.minimum.at(ckeys[c], j0 + fin, _key(kd[fin], first))
+    out = [((k >> np.uint64(32)).astype(np.uint32).view(np.float32),
+            (k & np.uint64(0xFFFFFFFF)).astype(np.int32)) for k in (rkeys, ckeys)]
+    (fd, fi), (bd, bi) = out[::-1] if swap else out
+    return fd, fi, bd, bi
+
+
+def _lattice_case(C, P, Q, seed, masked=0.3):
+    """Points on a 3-step lattice: many equal distances, so ties straddle
+    every tile, slice, pass and step border; random masks on both sides."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, 3, (C, P, 3)).astype(np.float32)
+    b = rng.randint(0, 3, (C, Q, 3)).astype(np.float32)
+    return a, b, rng.rand(C, P) > masked, rng.rand(C, Q) > masked
+
+
+def _masks_case():
+    a, b, am, bm = _lattice_case(3, 90, 75, seed=5, masked=0.5)
+    am[1, ::2] = False  # a masked row's own forward result is still checked
+    return a, b, am, bm
+
+
+def _all_masked_case():
+    a, b, am, bm = _lattice_case(3, 50, 80, seed=6)
+    am[0], bm[1] = False, False
+    am[2], bm[2] = False, False
+    return a, b, am, bm
+
+
+_STREAM_CASES = {
+    "lattice_ties_rows_a": lambda: _lattice_case(2, 150, 70, seed=3),
+    "lattice_ties_rows_b": lambda: _lattice_case(2, 70, 150, seed=4),
+    "partial_masks": _masks_case,
+    "all_masked_components": _all_masked_case,
+    "p_much_larger_ragged": lambda: _lattice_case(1, 203, 37, seed=7),
+    "p_much_smaller_ragged": lambda: _lattice_case(2, 45, 301, seed=8),
+}
+
+
+def _assert_design_equals_plain(args, sizes, cover=None):
+    got = _stream_design(*args, **sizes, cover=cover)
+    want = tpm.pair_min_plain(*(T(x) for x in args))
+    for g, w in zip(got, want):
+        assert g.dtype == w.numpy().dtype
+        np.testing.assert_array_equal(g, w.numpy())
+    return got
 
 
 def test_pair_min_stream_mode_design_equals_plain():
-    """The streamed mode's tiling and key merge (emulated with its own
-    S_THREADS, S_RPT, S_SLICE and S_CHUNK scaled down by 32) give the
-    plain version's results bit for bit, ties and empty rows included; its
-    grid covers every (row, scanned point) pair of each direction once."""
-    threads, rpt = _cu_define("pair_min.cu", "S_THREADS"), _cu_define("pair_min.cu", "S_RPT")
-    slice_len, chunk = _cu_define("pair_min.cu", "S_SLICE"), _cu_define("pair_min.cu", "S_CHUNK")
-    assert slice_len % chunk == 0 and threads % 32 == 0
-    a, b, am, bm = _tie_case()
-    got = _stream_emulation(a, b, am, bm, threads * rpt // 32, slice_len // 32, chunk // 32)
-    want = tpm.pair_min_plain(T(a), T(b), T(am), T(bm))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w.numpy())
-    P, Q, rows = 884_736, 32_768, threads * rpt  # the head's full-width call
-    for nrows, nscan in ((P, Q), (Q, P)):
-        tiles, slices = -(-nrows // rows), -(-nscan // slice_len)
-        assert tiles * rows >= nrows > (tiles - 1) * rows
-        assert slices * slice_len >= nscan > (slices - 1) * slice_len
+    """The streamed mode's single pass (emulated with csrc/pair_min.cu's own
+    S_* sizes, scaled down) gives the plain version's results bit for bit
+    on lattice ties across its tile, slice, pass and step borders, with
+    masked and empty rows on both sides; its grid computes every (row,
+    column) pair of each component exactly once, for both directions."""
+    args = _tie_case()
+    for half in (False, True):  # the largest and the smallest row tile
+        cover = np.zeros((3, 90, 70), int)  # rows are the larger side: b
+        _assert_design_equals_plain(args, _stream_sizes(0, half), cover)
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("case", sorted(_STREAM_CASES))
+def test_pair_min_stream_mode_design_cases_equal_plain(case):
+    """As above on each case: ties where rows are a or b, partial masks on
+    both sides, components with a side or both sides masked, ragged edges
+    with P much larger or smaller than Q."""
+    a, b, am, bm = _STREAM_CASES[case]()
+    C, P, Q = a.shape[0], a.shape[1], b.shape[1]
+    cover = np.zeros((C, max(P, Q), min(P, Q)), int)
+    fd, fi, bd, bi = _assert_design_equals_plain((a, b, am, bm), _stream_sizes(0), cover)
+    assert (cover == 1).all()
+    if case == "partial_masks":
+        assert np.isfinite(fd[1, ::2]).all()  # masked rows have their own minima
+    if case == "all_masked_components":
+        assert np.isinf(bd[0]).all() and (bi[0] == 0).all()  # no valid row
+        assert np.isinf(fd[1]).all() and (fi[1] == 0).all()  # no valid column
+        assert np.isinf(fd[2]).all() and np.isinf(bd[2]).all()
+
+
+def test_pair_min_stream_mode_design_on_the_heads_keys():
+    """The single pass at the kernel's own sizes on the reconstruction
+    head's key layout (1e3 * batch, polar, azimuth), n = 2,048 returns in two
+    batches and their 27 samples each: the plain version bit for bit."""
+    args = reconstruction_keys(2048)
+    fd, fi, bd, bi = _assert_design_equals_plain(args, _stream_sizes(1))
+    assert (fi[0, : 27 * 1024] < 1024).all() and (fi[0, 27 * 1024:] >= 1024).all()
+
+
+def test_pair_min_stream_grid_at_the_heads_full_width():
+    """At the head's full-width call (P = 884,736, Q = 32,768) the grid's row
+    tiles and slices cover each side exactly, its blocks fill 132 SMs at two
+    an SM many times over, and the atomics stay under 0.2% of the pairs."""
+    z = _stream_sizes(1)
+    P, Q = 884_736, 32_768
+    tiles, slices = -(-P // z["tile"]), -(-Q // z["slice_len"])
+    assert tiles * z["tile"] >= P > (tiles - 1) * z["tile"]
+    assert slices * z["slice_len"] >= Q > (slices - 1) * z["slice_len"]
+    assert tiles * slices >= 20 * 2 * 132
+    assert (P * slices + Q * tiles) < 0.002 * P * Q
 
 
 def test_pair_min_plain_holds_the_heads_shape_in_tiles():
