@@ -1,0 +1,6 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at
+its 700 W power limit): float32 outside the tensor cores, and HBM3
+bandwidth. The configurations run in float32 with TF32 off."""
+
+FLOAT32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
