@@ -1938,7 +1938,7 @@ def offline_phase(repo, dev, gpu_line, kernels, rehearse, size):
                     "--device", dev.type if arm == "card" else "cpu"]
             t0 = time.perf_counter()
             with profiler.device_trace(tmp / "trace", enabled=arm == "card"):
-                with profiler.annotate("chip_smoke.offline.convert"):
+                with profiler.span("chip_smoke.offline.convert"):
                     (_, timings), = create_waymo_infos.main(argv)
             runs[arm] = (time.perf_counter() - t0, timings)
         seq_c, seq_p = (roots[a] / tag_dir / "segment-smoke" for a in ("card", "cpu"))

@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..ops import boxes as box_ops
 from ..ops import sparse_conv as sc
 from ..ops.sampling import top_k
+from ..utils.profiler import span
 from . import roi_heads as rh
 from .backbones_2d import BaseBEVBackbone, HeightCompression, PointPillarScatter
 from .backbones_3d import BACKBONES_3D
@@ -232,24 +233,29 @@ class Detector3DTemplate(nn.Module):
         (the batch itself for a model without a VFE) goes on in the
         network's (the dense head's parameters'). CaDDN's depth loss and the
         co-train's segmentation loss (``seg_loss``) add to the dense head's
-        loss, and so to ``total_loss``."""
+        loss, and so to ``total_loss``. Each module runs in a
+        ``utils.profiler`` span of its attribute's name, the dense head's
+        loss in ``dense_head.loss`` and the RoI stage in ``roi_stage``."""
         dtype = next(self.dense_head.parameters()).dtype
         if self.vfe is not None:
-            batch_dict = self.vfe(batch_dict)
+            with span("vfe"):
+                batch_dict = self.vfe(batch_dict)
         batch_dict = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
                       for k, v in batch_dict.items()}
-        for module in (self.backbone_3d, self.map_to_bev, self.pfe, self.backbone_2d,
-                       self.dense_head):
+        for name in ("backbone_3d", "map_to_bev", "pfe", "backbone_2d", "dense_head"):
+            module = getattr(self, name)
             if module is not None:
-                batch_dict = module(batch_dict)
+                with span(name):
+                    batch_dict = module(batch_dict)
         if self.training:
-            if self.is_point_based:
-                losses = PointHeadBox.loss(batch_dict, batch_dict["gt_boxes"])
-            else:
-                losses = self.dense_head.loss(batch_dict)
-            if isinstance(self.vfe, ImageVFE):
-                losses = self._add_to_base(losses, "depth_loss",
-                                           self.vfe.depth_loss(batch_dict))
+            with span("dense_head.loss"):
+                if self.is_point_based:
+                    losses = PointHeadBox.loss(batch_dict, batch_dict["gt_boxes"])
+                else:
+                    losses = self.dense_head.loss(batch_dict)
+                if isinstance(self.vfe, ImageVFE):
+                    losses = self._add_to_base(losses, "depth_loss",
+                                               self.vfe.depth_loss(batch_dict))
             batch_dict["losses"] = losses
         if self.seg_head is not None:
             batch_dict = self.seg_head(batch_dict)
@@ -257,7 +263,8 @@ class Detector3DTemplate(nn.Module):
                 seg = PointHeadSimple.loss(batch_dict, batch_dict["gt_boxes"])
                 batch_dict["losses"] = self._add_to_base(batch_dict["losses"], "seg_loss", seg)
         if self.roi_head is not None:
-            batch_dict = self._run_roi_stage(batch_dict)
+            with span("roi_stage"):
+                batch_dict = self._run_roi_stage(batch_dict)
         return batch_dict
 
     @staticmethod
@@ -290,8 +297,9 @@ class Detector3DTemplate(nn.Module):
         else:
             boxes, cls_scores = self.dense_head.generate_predicted_boxes(batch_dict)
             scores = cls_scores.amax(dim=-1)
-        per_sample = [rh.proposal_layer(boxes[b], scores[b], num_rois=self.num_rois)
-                      for b in range(boxes.shape[0])]
+        with span("roi_stage.proposal"):
+            per_sample = [rh.proposal_layer(boxes[b], scores[b], num_rois=self.num_rois)
+                          for b in range(boxes.shape[0])]
         rois, roi_scores, roi_valid = (torch.stack(t) for t in zip(*per_sample))
         if self.is_point_based:
             roi_valid = roi_valid & torch.isfinite(roi_scores)

@@ -14,6 +14,7 @@ from torch import nn
 from ..ops import grid_utils, segment_ops
 from ..ops.geometry import sqrt_rn
 from ..ops.roi_pool import _true_div
+from ..utils import profiler, telemetry
 from .backbones_2d import conv2d
 from .layers import BatchNorm2d, MaskedBatchNorm, init_fan_in
 
@@ -22,7 +23,9 @@ class DynamicMeanVFE(nn.Module):
     """Mean of (x, y, z, point features) per voxel over the points inside
     the range, with no cap on the points per voxel. Points outside the
     range or not valid are moved to 1e8 (their own voxel, last in order),
-    as in the JAX module."""
+    as in the JAX module. While ``utils.profiler`` traces, the counters
+    ``vfe.points`` (valid points inside the range) and ``vfe.points_dropped``
+    (those of them whose voxel the cap drops) count on the device."""
 
     def __init__(self, voxel_size, point_cloud_range, voxel_cap):
         super().__init__()
@@ -43,6 +46,9 @@ class DynamicMeanVFE(nn.Module):
         full = torch.cat([points[:, 1:4], feats], dim=-1)
         coords, vfeat, vvalid, inverse = grid_utils.dynamic_voxelize(
             pts, full, self.voxel_size, pcr[:3], self.voxel_cap)
+        if profiler.enabled():
+            telemetry.add("vfe.points", valid.sum())
+            telemetry.add("vfe.points_dropped", (valid & (inverse >= self.voxel_cap)).sum())
         batch_dict["voxel_features"] = torch.where(vvalid[:, None], vfeat,
                                                    torch.zeros_like(vfeat))
         batch_dict["voxel_coords"] = torch.where(vvalid[:, None], coords,

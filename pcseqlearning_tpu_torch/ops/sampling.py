@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiler import span
+
 
 def batched_farthest_point_sample(xyz, num_samples, valid=None):
     """Farthest point sampling of B point sets at once: xyz [B, N, 3] (or
@@ -24,7 +26,13 @@ def batched_farthest_point_sample(xyz, num_samples, valid=None):
     that order, one rounding each (eager ops: no fused multiply-add on the
     card), and ``torch.argmax`` takes the first of equal maxima, as
     ``jnp.argmax``. The B loops run as one loop over a [B, N] table, with
-    no host read, eight launches an iteration."""
+    no host read, eight launches an iteration. A call is one
+    ``utils.profiler`` span, ``fps``."""
+    with span("fps"):
+        return _fps(xyz, num_samples, valid)
+
+
+def _fps(xyz, num_samples, valid):
     if xyz.dim() == 2:
         xyz = xyz[None]
     b = xyz.shape[0] if valid is None else valid.shape[0]

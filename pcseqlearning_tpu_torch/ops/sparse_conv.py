@@ -28,6 +28,11 @@ from PCSEQ_DENSE_TABLE_CAP, default 300,000,000; here it is an argument with
 that default), and through
 ``hash_graph.coord_lookup`` above it. Both give the same rulebook.
 
+With ``utils.profiler`` tracing, every rulebook a conv resolves (the
+output coordinates, the forward and reverse lookups) runs in a span
+``sparse_conv.rulebook``, and the gather-GEMMs in ``sparse_conv.gemm`` and
+``sparse_conv.gemm_bwd``.
+
 Weight layout: [K, Cin, Cout], K enumerating the kernel offsets in
 ``itertools.product`` order over (dz, dy, dx).
 """
@@ -39,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiler import span
 from . import hash_graph, segment_ops
 
 DENSE_TABLE_CAP = 300_000_000
@@ -144,19 +150,21 @@ class _RulebookMM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, idx_fwd, idx_rev, weights):
-        ctx.save_for_backward(feats, idx_fwd, idx_rev, weights)
-        return _gather_mm(feats, idx_fwd, weights)
+        with span("sparse_conv.gemm"):
+            ctx.save_for_backward(feats, idx_fwd, idx_rev, weights)
+            return _gather_mm(feats, idx_fwd, weights)
 
     @staticmethod
     def backward(ctx, dy):
-        feats, idx_fwd, idx_rev, weights = ctx.saved_tensors
-        k, cin, cout = weights.shape
-        dfeats = dw = None
-        if ctx.needs_input_grad[0]:
-            dfeats = _gather_mm(dy, idx_rev, weights.transpose(1, 2))
-        if ctx.needs_input_grad[3]:
-            dw = (_gather_rows(feats, idx_fwd).t() @ dy).reshape(k, cin, cout)
-        return dfeats, None, None, dw
+        with span("sparse_conv.gemm_bwd"):
+            feats, idx_fwd, idx_rev, weights = ctx.saved_tensors
+            k, cin, cout = weights.shape
+            dfeats = dw = None
+            if ctx.needs_input_grad[0]:
+                dfeats = _gather_mm(dy, idx_rev, weights.transpose(1, 2))
+            if ctx.needs_input_grad[3]:
+                dw = (_gather_rows(feats, idx_fwd).t() @ dy).reshape(k, cin, cout)
+            return dfeats, None, None, dw
 
 
 def rulebook_mm(feats, idx_fwd, idx_rev, weights):
@@ -175,15 +183,17 @@ def build_subm_rulebook(st: SparseTensor, kernel_size=3, dense_table_cap=DENSE_T
     """[K, V] rulebook of a submanifold conv on ``st``'s coordinate set. It
     depends on the coordinates alone, so every subm conv of a stage shares
     one."""
-    ks = _triple(kernel_size)
-    dev = st.coords.device
-    center = torch.tensor([(s - 1) // 2 for s in ks], device=dev)
-    delta = kernel_offsets(ks, dev) - center
-    k, v = delta.shape[0], st.coords.shape[0]
-    zyx = st.coords[None, :, 1:4].long() + delta[:, None, :]
-    q = torch.cat([st.coords[None, :, 0:1].long().expand(k, v, 1), zyx], dim=-1).reshape(k * v, 4)
-    qv = st.valid[None, :].expand(k, v).reshape(-1)
-    return _lookup_coords(st, q, qv, dense_table_cap).reshape(k, v)
+    with span("sparse_conv.rulebook"):
+        ks = _triple(kernel_size)
+        dev = st.coords.device
+        center = torch.tensor([(s - 1) // 2 for s in ks], device=dev)
+        delta = kernel_offsets(ks, dev) - center
+        k, v = delta.shape[0], st.coords.shape[0]
+        zyx = st.coords[None, :, 1:4].long() + delta[:, None, :]
+        q = torch.cat([st.coords[None, :, 0:1].long().expand(k, v, 1), zyx],
+                      dim=-1).reshape(k * v, 4)
+        qv = st.valid[None, :].expand(k, v).reshape(-1)
+        return _lookup_coords(st, q, qv, dense_table_cap).reshape(k, v)
 
 
 def subm_conv3d(st: SparseTensor, weights, bias=None, kernel_size=3, rulebook=None,
@@ -248,31 +258,32 @@ def sparse_conv3d(st: SparseTensor, weights, bias=None, kernel_size=3, stride=2,
     ks, stride, padding = _triple(kernel_size), _triple(stride), _triple(padding)
     v = st.features.shape[0]
     out_cap = out_cap or v
-    out_coords, out_valid, out_shape = _downsample_coords(st, ks, stride, padding, out_cap,
-                                                          dense_table_cap)
-    dev = st.coords.device
-    offs = kernel_offsets(ks, dev)
-    k = offs.shape[0]
-    stride_a = torch.tensor(stride, device=dev)
-    pad_a = torch.tensor(padding, device=dev)
+    with span("sparse_conv.rulebook"):
+        out_coords, out_valid, out_shape = _downsample_coords(st, ks, stride, padding, out_cap,
+                                                              dense_table_cap)
+        dev = st.coords.device
+        offs = kernel_offsets(ks, dev)
+        k = offs.shape[0]
+        stride_a = torch.tensor(stride, device=dev)
+        pad_a = torch.tensor(padding, device=dev)
+
+        # forward rulebook: output o reads input o * stride - pad + off_k
+        zyx = out_coords[None, :, 1:4].long() * stride_a - pad_a + offs[:, None, :]
+        b = out_coords[None, :, 0:1].long().expand(k, out_cap, 1)
+        q = torch.cat([b, zyx], dim=-1).reshape(k * out_cap, 4)
+        qv = out_valid[None, :].expand(k, out_cap).reshape(-1)
+        idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, out_cap)
+
+        # reverse rulebook: input i feeds output (i + pad - off_k) / stride
+        out_st = SparseTensor(st.features.new_zeros((out_cap, 1)), out_coords, out_valid,
+                              out_shape, st.batch_size)
+        rzyx = st.coords[None, :, 1:4].long() + pad_a - offs[:, None, :]
+        rb = st.coords[None, :, 0:1].long().expand(k, v, 1)
+        rq = torch.cat([rb, rzyx // stride_a], dim=-1).reshape(k * v, 4)
+        rqv = (st.valid[None, :] & (rzyx % stride_a == 0).all(-1)).reshape(-1)
+        idx_rev = _lookup_coords(out_st, rq, rqv, dense_table_cap).reshape(k, v)
+
     feats = _mask_features(st.features, st.valid)
-
-    # forward rulebook: output o reads input o * stride - pad + off_k
-    zyx = out_coords[None, :, 1:4].long() * stride_a - pad_a + offs[:, None, :]
-    b = out_coords[None, :, 0:1].long().expand(k, out_cap, 1)
-    q = torch.cat([b, zyx], dim=-1).reshape(k * out_cap, 4)
-    qv = out_valid[None, :].expand(k, out_cap).reshape(-1)
-    idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, out_cap)
-
-    # reverse rulebook: input i feeds output (i + pad - off_k) / stride
-    out_st = SparseTensor(feats.new_zeros((out_cap, 1)), out_coords, out_valid, out_shape,
-                          st.batch_size)
-    rzyx = st.coords[None, :, 1:4].long() + pad_a - offs[:, None, :]
-    rb = st.coords[None, :, 0:1].long().expand(k, v, 1)
-    rq = torch.cat([rb, rzyx // stride_a], dim=-1).reshape(k * v, 4)
-    rqv = (st.valid[None, :] & (rzyx % stride_a == 0).all(-1)).reshape(-1)
-    idx_rev = _lookup_coords(out_st, rq, rqv, dense_table_cap).reshape(k, v)
-
     out = rulebook_mm(feats, idx_all, idx_rev, weights)
     if bias is not None:
         out = out + bias[None, :]
@@ -337,29 +348,30 @@ def sparse_inverse_conv3d(st: SparseTensor, target: SparseTensor, weights, bias=
     c * stride - pad + off_k up among the targets, so the backward gathers
     too. Output: ``target``'s coords and mask."""
     ks, stride, padding = _triple(kernel_size), _triple(stride), _triple(padding)
-    dev = st.coords.device
-    offs = kernel_offsets(ks, dev)
-    k = offs.shape[0]
-    stride_a = torch.tensor(stride, device=dev)
-    pad_a = torch.tensor(padding, device=dev)
+    v, t_cap = st.features.shape[0], target.features.shape[0]
+    with span("sparse_conv.rulebook"):
+        dev = st.coords.device
+        offs = kernel_offsets(ks, dev)
+        k = offs.shape[0]
+        stride_a = torch.tensor(stride, device=dev)
+        pad_a = torch.tensor(padding, device=dev)
+
+        zyx = target.coords[None, :, 1:4].long() + pad_a - offs[:, None, :]  # [K, T, 3]
+        div_ok = (torch.remainder(zyx, stride_a) == 0).all(-1)
+        coarse = torch.div(zyx, stride_a, rounding_mode="floor")
+        b = target.coords[None, :, 0:1].long().expand(k, t_cap, 1)
+        q = torch.cat([b, coarse], dim=-1).reshape(k * t_cap, 4)
+        qv = (target.valid[None, :] & div_ok).reshape(-1)
+        idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, t_cap)
+        idx_all = torch.where(div_ok, idx_all, torch.full_like(idx_all, -1))
+
+        rzyx = st.coords[None, :, 1:4].long() * stride_a - pad_a + offs[:, None, :]  # [K, V, 3]
+        rb = st.coords[None, :, 0:1].long().expand(k, v, 1)
+        rq = torch.cat([rb, rzyx], dim=-1).reshape(k * v, 4)
+        rqv = st.valid[None, :].expand(k, v).reshape(-1)
+        idx_rev = _lookup_coords(target, rq, rqv, dense_table_cap).reshape(k, v)
+
     feats = _mask_features(st.features, st.valid)
-    v, t_cap = feats.shape[0], target.features.shape[0]
-
-    zyx = target.coords[None, :, 1:4].long() + pad_a - offs[:, None, :]  # [K, T, 3]
-    div_ok = (torch.remainder(zyx, stride_a) == 0).all(-1)
-    coarse = torch.div(zyx, stride_a, rounding_mode="floor")
-    b = target.coords[None, :, 0:1].long().expand(k, t_cap, 1)
-    q = torch.cat([b, coarse], dim=-1).reshape(k * t_cap, 4)
-    qv = (target.valid[None, :] & div_ok).reshape(-1)
-    idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, t_cap)
-    idx_all = torch.where(div_ok, idx_all, torch.full_like(idx_all, -1))
-
-    rzyx = st.coords[None, :, 1:4].long() * stride_a - pad_a + offs[:, None, :]  # [K, V, 3]
-    rb = st.coords[None, :, 0:1].long().expand(k, v, 1)
-    rq = torch.cat([rb, rzyx], dim=-1).reshape(k * v, 4)
-    rqv = st.valid[None, :].expand(k, v).reshape(-1)
-    idx_rev = _lookup_coords(target, rq, rqv, dense_table_cap).reshape(k, v)
-
     out = rulebook_mm(feats, idx_all, idx_rev, weights)
     if bias is not None:
         out = out + bias[None, :]
@@ -378,18 +390,19 @@ def sparse_maxpool3d(st: SparseTensor, kernel_size=3, stride=2, padding=1, out_c
     ks, stride, padding = _triple(kernel_size), _triple(stride), _triple(padding)
     v = st.features.shape[0]
     out_cap = out_cap or v
-    out_coords, out_valid, out_shape = _downsample_coords(st, ks, stride, padding, out_cap,
-                                                          dense_table_cap)
-    dev = st.coords.device
-    offs = kernel_offsets(ks, dev)
-    k = offs.shape[0]
+    with span("sparse_conv.rulebook"):
+        out_coords, out_valid, out_shape = _downsample_coords(st, ks, stride, padding, out_cap,
+                                                              dense_table_cap)
+        dev = st.coords.device
+        offs = kernel_offsets(ks, dev)
+        k = offs.shape[0]
+        zyx = (out_coords[None, :, 1:4].long() * torch.tensor(stride, device=dev)
+               - torch.tensor(padding, device=dev) + offs[:, None, :])
+        b = out_coords[None, :, 0:1].long().expand(k, out_cap, 1)
+        q = torch.cat([b, zyx], dim=-1).reshape(k * out_cap, 4)
+        qv = out_valid[None, :].expand(k, out_cap).reshape(-1)
+        idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, out_cap)
     feats = _mask_features(st.features, st.valid)
-    zyx = (out_coords[None, :, 1:4].long() * torch.tensor(stride, device=dev)
-           - torch.tensor(padding, device=dev) + offs[:, None, :])
-    b = out_coords[None, :, 0:1].long().expand(k, out_cap, 1)
-    q = torch.cat([b, zyx], dim=-1).reshape(k * out_cap, 4)
-    qv = out_valid[None, :].expand(k, out_cap).reshape(-1)
-    idx_all = _lookup_coords(st, q, qv, dense_table_cap).reshape(k, out_cap)
     neg = torch.full((out_cap, feats.shape[1]), float("-inf"), dtype=feats.dtype, device=dev)
     out = neg
     for kk in range(k):

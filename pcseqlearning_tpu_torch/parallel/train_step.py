@@ -35,6 +35,12 @@ own counts), no voxel cap cuts a sample, and no point is padding or out of
 range (the VFE pools a shard's invalid points into one voxel of their own,
 whose features enter the batch norms' moments): in JAX as here.
 ``dp_equivalence_issues`` checks a batch for all three.
+
+With ``utils.profiler`` tracing, a step is the span ``train_step`` over
+``train_step.forward`` (the batch to the device, flattening, the model
+call), ``train_step.backward`` (``zero_grad``, ``.backward()`` and, with a
+group, the ranks' reductions) and ``train_step.optimizer`` (freezing,
+``global_norm``, the optimizer's step).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..device import resolve_device
 from ..models.layers import bn_cross_replica
 from ..runtime.optimization import build_optimizer, global_norm
 from ..utils import dist_utils
+from ..utils.profiler import span
 from .mesh import rows_of
 
 
@@ -152,33 +159,38 @@ def make_train_step(loss_key="rpn_loss", freeze_regexes=(), freeze_until=0, devi
     rank, world = (0, 1) if group is None else dist_utils.get_dist_info(group)
 
     def train_step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
-        model.train()
-        if group is not None:
-            batch = {k: rows_of(batch[k], rank, world)
-                     for k in ("points", "feats", "valid", "gt_boxes")}
-        with bn_cross_replica(group):
-            out = model(_flatten_local(**_to_device(batch, dev)))
-        losses = {k: v.detach() for k, v in out["losses"].items()}
-        opt.zero_grad()
-        out["losses"][loss_key].backward()
-        params = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
-        if group is not None:
-            _pmean_([p.grad for _, p in params], group, world)
-            names = list(losses)
-            stacked = torch.stack([losses[k] for k in names])
-            _pmean_([stacked], group, world)
-            losses = dict(zip(names, stacked.unbind()))
-            with torch.no_grad():
-                _pmean_([b for b in model.buffers() if b.is_floating_point()], group, world)
-        if patterns and state.step < freeze_until:
-            for name, p in params:
-                if any(pat.search(param_path(name)) for pat in patterns):
-                    p.grad.zero_()
-        losses["grad_norm"] = global_norm([p.grad for _, p in params])
-        opt.step()
-        state.step += 1
-        return state, losses
+        with span("train_step"):
+            model, opt = state.model, state.optimizer
+            model.train()
+            with span("train_step.forward"):
+                if group is not None:
+                    batch = {k: rows_of(batch[k], rank, world)
+                             for k in ("points", "feats", "valid", "gt_boxes")}
+                with bn_cross_replica(group):
+                    out = model(_flatten_local(**_to_device(batch, dev)))
+                losses = {k: v.detach() for k, v in out["losses"].items()}
+            with span("train_step.backward"):
+                opt.zero_grad()
+                out["losses"][loss_key].backward()
+                params = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+                if group is not None:
+                    _pmean_([p.grad for _, p in params], group, world)
+                    names = list(losses)
+                    stacked = torch.stack([losses[k] for k in names])
+                    _pmean_([stacked], group, world)
+                    losses = dict(zip(names, stacked.unbind()))
+                    with torch.no_grad():
+                        _pmean_([b for b in model.buffers() if b.is_floating_point()], group,
+                                world)
+            with span("train_step.optimizer"):
+                if patterns and state.step < freeze_until:
+                    for name, p in params:
+                        if any(pat.search(param_path(name)) for pat in patterns):
+                            p.grad.zero_()
+                losses["grad_norm"] = global_norm([p.grad for _, p in params])
+                opt.step()
+            state.step += 1
+            return state, losses
 
     return train_step
 

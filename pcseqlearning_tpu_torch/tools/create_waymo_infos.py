@@ -52,7 +52,7 @@ from ..datasets.range_image import extract_points
 from ..datasets.tfrecord_io import read_tfrecord
 from ..datasets.waymo_protos import Frame, MatrixFloat, MatrixInt32
 from ..device import resolve_device
-from ..utils.profiler import annotate
+from ..utils.profiler import span
 
 TYPE_NAMES = {1: "Vehicle", 2: "Pedestrian", 3: "Sign", 4: "Cyclist"}
 
@@ -138,14 +138,14 @@ def process_single_sequence(seq_file, out_dir, has_label=True, sampled_interval=
         if idx % sampled_interval != 0:
             continue
         t0 = time.perf_counter()
-        with annotate("create_waymo_infos.decode"):
+        with span("create_waymo_infos.decode"):
             frame = Frame.decode(data)
             lasers = [decode_laser(frame, c) for c in frame.context.laser_calibrations]
         t1 = time.perf_counter()
-        with annotate("create_waymo_infos.projection"):
+        with span("create_waymo_infos.projection"):
             pts, seg_pts = project_lasers(lasers, dev)
         t2 = time.perf_counter()
-        with annotate("create_waymo_infos.write"):
+        with span("create_waymo_infos.write"):
             out = np.zeros((len(pts), 8), np.float32)
             out[:, 0:3] = pts[:, 3:6]  # xyz
             out[:, 3] = pts[:, 1]  # intensity

@@ -6,9 +6,11 @@ a 120,000-voxel cap, the +-74.88 m Waymo grid, Adam 1e-3, TF32 off).
 
 Once with cuDNN's heuristic algorithm choice (torch's default) and once
 with ``torch.backends.cudnn.benchmark``, after two warm-up steps, it prints
-(1) the forward's time by top-level module and the backward and
-optimizer's, each between synchronizes, with the peak memory after each;
-(2) torch.profiler over one step: the kernels' summed device time against
+(1) one step by the program's own spans (``utils.profiler``: each span's
+calls, device ms from its CUDA events, self ms, host ms and parent: the
+train step's forward, backward and optimizer, the detector's modules, the
+sparse convolutions' rulebooks and gather-GEMMs), with the step's peak
+memory; (2) torch.profiler over one step: the kernels' summed device time against
 the step's wall time, and the top operators by device time and by host
 time; then (3) each 2D convolution of the forward alone at its shapes,
 with cuDNN's heuristic choice, with cudnn.benchmark and on channels_last
@@ -123,7 +125,8 @@ def profile_step(model, batch, dev):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..parallel.train_step import _flatten_local, init_train_state, make_train_step
+    from ..parallel.train_step import init_train_state, make_train_step
+    from ..utils import profiler
 
     state = init_train_state(model, device=dev)
     step = make_train_step(loss_key="center_loss", device=dev)
@@ -131,34 +134,17 @@ def profile_step(model, batch, dev):
         state, losses = step(state, batch)
     torch.cuda.synchronize()
 
-    # (1) the step split between synchronizes
-    model, split, mem = state.model, {}, {}
-    model.train()
-    bd = _flatten_local(**batch)
+    # (1) the step by the program's spans
     torch.cuda.reset_peak_memory_stats()
-    for name in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "dense_head"):
-        t0 = time.perf_counter()
-        bd = getattr(model, name)(bd)
-        torch.cuda.synchronize()
-        split[name] = time.perf_counter() - t0
-        mem[name] = torch.cuda.max_memory_allocated() / 1e9
-    t0 = time.perf_counter()
-    loss = model.dense_head.loss(bd)["center_loss"]
-    torch.cuda.synchronize()
-    split["loss"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state.optimizer.zero_grad()
-    loss.backward()
-    torch.cuda.synchronize()
-    split["backward"] = time.perf_counter() - t0
-    mem["backward"] = torch.cuda.max_memory_allocated() / 1e9
-    t0 = time.perf_counter()
-    state.optimizer.step()
-    torch.cuda.synchronize()
-    split["optimizer"] = time.perf_counter() - t0
-    del bd, loss
-    print(f"# step split (s): {json.dumps(split)}; total {sum(split.values()):.4f}", flush=True)
-    print(f"# peak memory after each part (GB): {json.dumps(mem)}", flush=True)
+    profiler.enable(True)
+    try:
+        state, losses = step(state, batch)
+    finally:
+        profiler.enable(False)
+    for name, row in profiler.read(reset=True).items():
+        print(f"# span {name} {json.dumps(row)}", flush=True)
+    print(f"# peak memory of the step (GB): {torch.cuda.max_memory_allocated() / 1e9:.3f}",
+          flush=True)
 
     # (2) torch.profiler over one whole step
     torch.cuda.synchronize()

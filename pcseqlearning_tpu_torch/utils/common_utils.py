@@ -1,4 +1,4 @@
-"""Dict-of-arrays helpers, logging, seeding and timing (counterpart of
+"""Dict-of-arrays helpers, logging and seeding (counterpart of
 pcseqlearning_tpu.utils.common_utils). Arrays may be NumPy arrays or torch
 tensors (on any device); masks and indices follow their indexing rules."""
 
@@ -6,12 +6,9 @@ from __future__ import annotations
 
 import logging
 import random
-import time
 
 import numpy as np
 import torch
-
-from .profiler import _cuda_devices
 
 _ARRAY_TYPES = (np.ndarray, torch.Tensor)
 
@@ -138,26 +135,3 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
-
-
-class Timer:
-    """Context manager printing the block's wall-clock seconds; with
-    ``sync`` (tensors, or a nest of them), it first waits for the work
-    queued on their CUDA devices."""
-
-    def __init__(self, name="", verbose=True, sync=None):
-        self.name = name
-        self.verbose = verbose
-        self.sync = sync
-
-    def __enter__(self):
-        self.t0 = time.time()
-        return self
-
-    def __exit__(self, *args):
-        for dev in _cuda_devices(self.sync, set()):
-            torch.cuda.synchronize(dev)
-        self.elapsed = time.time() - self.t0
-        if self.verbose:
-            print(f"[Timer] {self.name}: {self.elapsed:.4f}s")
-        return False

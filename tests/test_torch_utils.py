@@ -1,6 +1,6 @@
 """The port's utilities against the JAX package's: the ``common_utils``
 dict and rotation helpers on NumPy arrays and on tensors (JAX arrays
-there), ``profiler``'s stage timer and trace, and ``flops.analytic_flops``
+there), ``profiler``'s spans and trace, and ``flops.analytic_flops``
 (counted at dispatch) against JAX's jaxpr walk: tests/test_flops.py's five
 cases (JAX's scan as a Python loop here), convolutions at stride 1 and 2
 with their gradients, a transposed convolution, and CenterPoint's train
@@ -12,6 +12,7 @@ rotations (float32; JAX's HIGHEST-precision matmul against torch's).
 """
 
 import json
+import time
 
 import flax.linen as nn
 import jax
@@ -101,24 +102,35 @@ def test_rotate_points_along_z_equals_jax():
     np.testing.assert_array_equal(got1[:, 2:].numpy(), pts[1][:, 2:])
 
 
-def test_stage_timer_timer_and_trace(tmp_path, capsys):
-    stats = {}
-    x = torch.ones(3)
-    for _ in range(2):
-        with profiler.stage_timer("stage", sync_tree={"x": [x]}, stats=stats):
-            x = x + 1
-    assert len(stats["stage"]) == 2 and all(s >= 0 for s in stats["stage"])
-    with tcu.Timer("block", sync=x) as t:
-        x = x * 2
-    assert t.elapsed >= 0
-    out = capsys.readouterr().out
-    assert out.count("[stage] stage:") == 2 and "[Timer] block:" in out
+def test_stage_timer_timer_and_trace(tmp_path):
+    """The spans' own timing (a nested span's time counts in its parent's
+    duration, not in its parent's self time) and the trace, which shows the
+    spans."""
+    profiler.reset()
+    with profiler.span("off"):
+        pass
+    assert profiler.read() == {}
+    was = profiler.enable(True)
+    try:
+        for _ in range(2):
+            with profiler.span("stage"):
+                with profiler.span("stage.inner"):
+                    time.sleep(0.002)
+    finally:
+        profiler.enable(was)
+    table = profiler.read(reset=True)
+    outer, inner = table["stage"], table["stage.inner"]
+    assert outer["calls"] == inner["calls"] == 2 and inner["host_ms"] >= 4.0
+    assert outer["parent"] is None and inner["parent"] == "stage"
+    assert outer["self_ms"] == pytest.approx(outer["host_ms"] - inner["host_ms"])
+    assert profiler.read() == {}
     with profiler.device_trace(tmp_path / "trace") as prof:
-        with profiler.annotate("port.region"):
+        with profiler.span("port.region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert prof is not None
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "port.region" for e in events)
+    profiler.reset()
     with profiler.device_trace(tmp_path / "off", enabled=False) as prof:
         pass
     assert prof is None and not (tmp_path / "off").exists()
